@@ -1,0 +1,85 @@
+"""The PyTorch port stands without JAX, builds nothing at import, and its
+chip smoke script refuses to run without a CUDA card."""
+
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import voxelraytracing_tpu_torch
+from voxelraytracing_tpu_torch import _build
+from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            voxelraytracing_tpu_torch.__path__, "voxelraytracing_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter where ``import jax`` fails, every module of
+    the port imports, and none of the JAX package is loaded."""
+    mods = _port_modules()
+    assert len(mods) >= 15, mods
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('jax', 'jaxlib', 'voxelraytracing_tpu')]\n"
+        "print('loaded', len(sys.modules), 'bad', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_kernel_build_is_lazy_and_ieee():
+    """Importing the port compiles nothing; the build keeps IEEE
+    arithmetic (no FMA contraction, no fast math) for sm_90a."""
+    assert _build._libs == {}
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "--fmad=false" in flags and "fast_math" not in flags
+    assert "arch=compute_90a,code=sm_90a" in flags
+    src, lib = _build.library_path("march4")
+    assert src.is_file() and lib.parent == ROOT / "build" / "kernels"
+    if shutil.which("nvcc") is None and not Path(
+            "/usr/local/cuda/bin/nvcc").is_file():
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.nvcc_path()
+
+
+def test_wrapper_refuses_other_devices():
+    """march_fused4 runs the kernel on CUDA tensors, the plain version on
+    CPU tensors, and raises on anything else."""
+    meta = dict(device="meta")
+    args = (torch.empty(43, **meta), torch.empty(2, 128, dtype=torch.int32, **meta),
+            torch.empty(6, 128, **meta),
+            torch.empty(64, 7, 128, dtype=torch.int32, **meta),
+            torch.empty(1, 1, 128, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t4.march_fused4(*args, height=8, width=16)
+
+
+def test_chip_smoke_fails_without_the_port_or_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when it is
+    alone in a directory, and, on a machine with no CUDA card, from the
+    repository root too."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    runs = [tmp_path]
+    if not torch.cuda.is_available():
+        runs.append(ROOT)
+    for cwd in runs:
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode != 0, (cwd, r.stdout, r.stderr)
+        assert '"ok"' not in r.stdout, (cwd, r.stdout)

@@ -1,0 +1,62 @@
+"""Self-contained procedural demo worlds (host build).
+
+Port of the host half of ``voxelraytracing_tpu/world/demo.py``: Perlin
+column heights -> layered stone/earth/grass columns with sea-level water,
+as a batch of dense ``[32³]`` chunk grids. The benchmark world and the
+port's tests are built from it.
+"""
+
+import numpy as np
+
+from ..core.constants import CHUNK_SIZE
+from ..ops import noise
+
+# Demo voxel ids (match the bundled respack's first entries).
+AIR, STONE, EARTH, GRASS, WATER = 0, 1, 2, 3, 4
+
+DEMO_STYLES = {
+    STONE: {"color": (0.55, 0.55, 0.55), "state": "solid"},
+    EARTH: {"color": (0.55, 0.35, 0.15), "state": "solid"},
+    GRASS: {"color": (0.30, 0.68, 0.24), "state": "solid"},
+    WATER: {"color": (0.12, 0.30, 0.85), "state": "liquid"},
+}
+
+
+def demo_materials(n_voxels=256):
+    from ..ops.materials import make_material_table
+
+    return make_material_table(n_voxels, DEMO_STYLES)
+
+
+def demo_chunk_grids_host(perm, min_chunk, size_in_chunks, height_scale, sea_level):
+    """Dense voxel grids for every chunk of a W³ window.
+
+    Returns ``(grids int32[W³, 32, 32, 32], cells int32[W³])``; grid axes
+    are (x, y, z) and cell ``c`` is chunk ``(c % W, c // W % W, c // W²)``.
+    """
+    w = size_in_chunks
+    b = w * w * w
+    idx = np.arange(b, dtype=np.int64)
+    offs = np.stack([idx % w, (idx // w) % w, idx // (w * w)], axis=-1)
+    corners = (np.asarray(min_chunk, np.int64) + offs) * CHUNK_SIZE
+
+    lx = np.arange(CHUNK_SIZE, dtype=np.int64)
+    gx = corners[:, 0, None] + lx[None, :]
+    gz = corners[:, 2, None] + lx[None, :]
+    pos = np.stack(
+        np.broadcast_arrays(
+            gx[:, :, None].astype(np.float32), gz[:, None, :].astype(np.float32)
+        ),
+        axis=-1,
+    )
+    h = noise.sample01_np(np.asarray(perm), pos * 0.01) * float(height_scale)
+    h = np.floor(h).astype(np.int64)
+
+    gy = corners[:, 1, None] + lx[None, :]
+    y = gy[:, None, :, None]
+    hh = h[:, :, None, :]
+    grid = np.where(y < hh - 3, STONE, AIR)
+    grid = np.where((y >= hh - 3) & (y < hh - 1), EARTH, grid)
+    grid = np.where((y >= hh - 1) & (y < hh), GRASS, grid)
+    grid = np.where((grid == AIR) & (y < int(sea_level)), WATER, grid)
+    return grid.astype(np.int32), idx.astype(np.int32)
