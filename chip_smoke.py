@@ -7,7 +7,7 @@ the hand-written CUDA kernel from ``voxelraytracing_tpu_torch/csrc``:
 
   1. the card's name and power limit (exits non-zero without a CUDA card);
   2. build ``march4.cu``, print its registers and spills;
-  3. the 8-chunk world (256³ voxels), built on the host and moved to the card;
+  3. the 8-chunk world (256³ voxels), built straight onto the card;
   4. the bench camera + 48 orbit cameras: kernel vs plain PyTorch version on
      the card, flags and packed words exactly equal;
   5. 320x180 on the CPU: kernel vs the plain version there (the one the CPU
@@ -72,9 +72,9 @@ def bench_cams(v, w, h):
     return static, orbit
 
 
-def build_world(w_chunks):
-    """bench.py's demo world, built on the host: (RenderGrid3 on the CPU,
-    materials, edge in voxels)."""
+def build_world(w_chunks, device="cuda"):
+    """bench.py's demo world: (RenderGrid3 on ``device``, materials, edge
+    in voxels)."""
     from voxelraytracing_tpu_torch.ops import noise
     from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
     from voxelraytracing_tpu_torch.world.demo import (
@@ -86,14 +86,8 @@ def build_world(w_chunks):
         w_chunks * 32 * 0.45, int(w_chunks * 32 * 0.28))
     mats = demo_materials()
     rg = build_render_grid3_host(grids, cells, np.zeros(3, np.int32),
-                                 w_chunks, mats)
+                                 w_chunks, mats, device=device)
     return rg, mats, w_chunks * 32
-
-
-def to_device(rg, dev):
-    return rg._replace(**{f: getattr(rg, f).to(dev) for f in (
-        "gw_jump", "gw_liq", "wmeta", "sw_meta", "sw_solid", "sw_liq",
-        "sw_pid", "world_min", "to_pack")})
 
 
 def channel_diff(a, b):
@@ -258,18 +252,17 @@ def main():
     results = {}
     for w_chunks in (8, 16):
         t0 = time.perf_counter()
-        rg_cpu, mats, v = build_world(w_chunks)
-        rg = to_device(rg_cpu, dev)
+        rg, mats, v = build_world(w_chunks)
         prep = prepare_grid4(rg)
         torch.cuda.synchronize()
         mb = prep.sw_cont.numel() * 4 / 1e6
-        say(3, f"{w_chunks}-chunk world ({v}^3 voxels): host build + upload "
-            f"{time.perf_counter() - t0:.1f} s, sw_cont {mb:.1f} MB")
+        say(3, f"{w_chunks}-chunk world ({v}^3 voxels): host build onto the "
+            f"card {time.perf_counter() - t0:.1f} s, sw_cont {mb:.1f} MB")
         lut = color_lut_rows(mats.color).to(dev)
         static, orbit = bench_cams(v, WIDTH, HEIGHT)
         err = compare_on_card(rg, prep, lut, [static] + orbit, 4)
         if w_chunks == 8:
-            compare_on_cpu(rg_cpu, rg, mats, v, 5)
+            compare_on_cpu(build_world(8, device="cpu")[0], rg, mats, v, 5)
 
             renderer = WavefrontRenderer(mats)
             settings = RenderSettings(sun_pos=(0.0, 10_000.0, 0.0))

@@ -45,7 +45,7 @@ def test_camdata_equal(rot, eye, size):
 def test_generate_rays_bit_equal(rot, eye, size):
     wmin = np.array([3, -2, 40], np.int32)
     cam = camera.CamData.create(rot, eye, 70.0, size)
-    o, d = camera.generate_rays(cam, wmin)
+    o, d = camera.generate_rays(cam, wmin, device="cpu")
     with jax.disable_jit():
         jo, jd = j_camera.generate_rays(
             j_camera.CamData.create(rot, eye, 70.0, size), wmin)
@@ -59,7 +59,8 @@ def test_generate_rays_band():
     cam = camera.CamData.create((10.0, 30.0, 0.0), (5.0, 6.0, 7.0), 60.0,
                                 (48, 16))
     args = (cam.inv_view, cam.inv_proj, cam.pos, 48, 16, np.zeros(3))
-    _, d = camera.generate_rays_raw(*args, y0=32, full_height=64)
+    _, d = camera.generate_rays_raw(*args, y0=32, full_height=64,
+                                    device="cpu")
     with jax.disable_jit():
         _, jd = j_camera.generate_rays_raw(*args, y0=32, full_height=64)
     np.testing.assert_array_equal(bits(d.numpy()), bits(jd))

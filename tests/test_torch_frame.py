@@ -73,7 +73,8 @@ def world():
     mats = demo_materials()
     jrg = build_render_grid3_host(grids, cells, np.zeros(3, np.int32), w, mats)
     trg = render_grid3_from_numpy(
-        *[np.asarray(getattr(jrg, f)) for f in RenderGrid3._fields])
+        *[np.asarray(getattr(jrg, f)) for f in RenderGrid3._fields],
+        device="cpu")
     gold = {f"cam{i}": _jax_frame(jrg, mats, c) for i, c in enumerate(CAMS)}
     gold["outside"] = _jax_frame(jrg, mats, OUTSIDE)
     gold["cap20"] = _jax_frame(jrg, mats, CAMS[0], step_cap=20)
@@ -252,6 +253,3 @@ def test_unported_modes_raise(world):
         t4.render_frame4(trg, cam, mats.color, **{**KW, "fused": False})
     with pytest.raises(NotImplementedError, match="item 7"):
         t4.render_frame4(trg, cam, mats.color, shadows=True, **KW)
-    with pytest.raises(NotImplementedError, match="palettes_ok"):
-        t4.render_frame4(trg._replace(palettes_ok=False), cam, mats.color,
-                         **KW)

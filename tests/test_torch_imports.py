@@ -70,6 +70,21 @@ def test_wrapper_refuses_other_devices():
         t4.march_fused4(*args, height=8, width=16)
 
 
+def test_entry_points_default_to_the_card():
+    """Every entry point that builds or places data runs on the card
+    unless the caller asks for the CPU (read from the signatures: a call
+    here, without a card, would fail)."""
+    import inspect
+
+    from voxelraytracing_tpu_torch import convert
+    from voxelraytracing_tpu_torch.ops import camera, wavefront3
+
+    for fn in (wavefront3.build_render_grid3_host,
+               convert.render_grid3_from_numpy, convert.prepared_from_numpy,
+               camera.generate_rays_raw, camera.generate_rays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
 def test_chip_smoke_fails_without_the_port_or_a_card(tmp_path):
     """chip_smoke.py exits non-zero and prints no result line when it is
     alone in a directory, and, on a machine with no CUDA card, from the

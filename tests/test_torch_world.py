@@ -45,7 +45,7 @@ def demo_world():
     jrg = j3.build_render_grid3_host(grids, cells, wmin, w,
                                      j_demo.demo_materials())
     trg = t3.build_render_grid3_host(grids, cells, wmin, w,
-                                     demo.demo_materials())
+                                     demo.demo_materials(), device="cpu")
     return jrg, trg
 
 
@@ -72,7 +72,7 @@ def noise_world():
         j_materials.make_material_table(40, styles))
     trg = t3.build_render_grid3_host(
         grids, cells, np.zeros(3, np.int32), w,
-        materials.make_material_table(40, styles))
+        materials.make_material_table(40, styles), device="cpu")
     return jrg, trg
 
 
@@ -177,13 +177,15 @@ def test_super_cell_planes_equal(nw):
 def test_convert_carries_the_jax_world(demo_world):
     jrg, trg = demo_world
     rg = render_grid3_from_numpy(
-        *[np.asarray(getattr(jrg, f)) for f in t3.RenderGrid3._fields])
+        *[np.asarray(getattr(jrg, f)) for f in t3.RenderGrid3._fields],
+        device="cpu")
     for f in PLANES + ("world_min", "to_pack"):
         assert torch.equal(getattr(rg, f), getattr(trg, f)), f
     assert (rg.n_liquid, rg.size_voxels, rg.palettes_ok) == (
         trg.n_liquid, trg.size_voxels, True)
     jp = j4.prepare_grid4(jrg)
-    tp = prepared_from_numpy(np.asarray(jp.sw_cont), np.asarray(jp.wmeta_pad))
+    tp = prepared_from_numpy(np.asarray(jp.sw_cont), np.asarray(jp.wmeta_pad),
+                             device="cpu")
     ref = t4.prepare_grid4(trg)
     assert torch.equal(tp.sw_cont, ref.sw_cont)
     assert torch.equal(tp.wmeta_pad, ref.wmeta_pad)

@@ -3,7 +3,8 @@
 The JAX package's ``RenderGrid3`` and ``PreparedGrid4`` hold uint32 bit
 words; the port holds the same bits as int32 tensors. These functions take
 the JAX arrays as NumPy (``np.asarray`` of each field) and return the
-port's structures on ``device``, so one world can feed both packages.
+port's structures on ``device`` (the card unless the caller asks for the
+CPU), so one world can feed both packages.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ from .ops.wavefront4 import PreparedGrid4
 
 def render_grid3_from_numpy(gw_jump, gw_liq, wmeta, sw_meta, sw_solid,
                             sw_liq, sw_pid, world_min, to_pack, n_liquid,
-                            size_voxels, palettes_ok, *, device="cpu"):
+                            size_voxels, palettes_ok, *, device="cuda"):
     """The fields of a JAX ``RenderGrid3`` except its v1 brick tables
     (``brick_dir``/``bricks``), in its order, as NumPy -> the port's
     RenderGrid3 on ``device``."""
@@ -29,7 +30,7 @@ def render_grid3_from_numpy(gw_jump, gw_liq, wmeta, sw_meta, sw_solid,
     )
 
 
-def prepared_from_numpy(sw_cont, wmeta_pad, *, device="cpu"):
+def prepared_from_numpy(sw_cont, wmeta_pad, *, device="cuda"):
     """JAX ``PreparedGrid4`` tables (uint32 arrays) -> the port's."""
     return PreparedGrid4(_i32(np.asarray(sw_cont), device),
                          _i32(np.asarray(wmeta_pad), device))

@@ -108,14 +108,15 @@ def _f32(x, device):
 
 def generate_rays_raw(
     inv_view, inv_proj, cam_pos, width, height, world_min, y0=0, full_height=None,
-    device="cpu",
+    device="cuda",
 ):
     """Per-pixel primary rays, world-local coordinates.
 
-    Returns ``(origin f32[3], dirs f32[H, W, 3])`` on ``device``; the origin
-    is shared by every pixel (ray_tracer.wgsl:159-171). ``y0``/``full_height``
-    select a horizontal band of a taller frame: band ``i`` of ``n`` is
-    ``y0=i*height, full_height=n*height``.
+    Returns ``(origin f32[3], dirs f32[H, W, 3])`` on ``device``, the card
+    unless the caller asks for the CPU; the origin is shared by every pixel
+    (ray_tracer.wgsl:159-171). ``y0``/``full_height`` select a horizontal
+    band of a taller frame: band ``i`` of ``n`` is ``y0=i*height,
+    full_height=n*height``.
     """
     f32 = torch.float32
     w, h = width, height
@@ -154,7 +155,7 @@ def generate_rays_raw(
     return origin, dirs
 
 
-def generate_rays(cam: CamData, world_min, device="cpu"):
+def generate_rays(cam: CamData, world_min, device="cuda"):
     """Convenience wrapper over :func:`generate_rays_raw` for a CamData."""
     w, h = cam.proj_size
     return generate_rays_raw(cam.inv_view, cam.inv_proj, cam.pos, w, h,

@@ -57,8 +57,9 @@ class RenderGrid3(NamedTuple):
     to_pack: ``int32[256]`` render id -> pack id; n_liquid: render ids
       1..n_liquid are liquids.
     palettes_ok: False when some subwindow holds more than 16 distinct
-      solid ids. The JAX package then resolves hit ids through its brick
-      tables; the port does not carry them and its renderer raises.
+      solid ids: those ids decode from the overflowed palette (its most
+      frequent entry), as in the JAX package's v4 frame, and the renderer
+      logs a warning.
     """
 
     gw_jump: torch.Tensor
@@ -154,12 +155,13 @@ def build_sw_palettes(vol_rows, solid_rows, to_pack):
 
 
 def build_render_grid3_host(grids, cells, world_min, size_in_chunks,
-                            materials, device="cpu"):
+                            materials, device="cuda"):
     """Host (NumPy) RenderGrid3 builder from per-chunk dense grids.
 
     ``grids``: ``int32[B,32,32,32]`` pack-id voxel grids (axes x,y,z);
     ``cells``: ``int32[B]`` window-local chunk cell ``x + y*W + z*W²``
-    (negative = unused slot). The planes land on ``device``.
+    (negative = unused slot). The planes land on ``device``: the card
+    unless the caller asks for the CPU.
     """
     grids = np.asarray(grids, np.int32)
     cells = np.asarray(cells, np.int32)

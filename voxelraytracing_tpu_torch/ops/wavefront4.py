@@ -21,6 +21,7 @@ right shift is masked, since ``>>`` sign-extends words with bit 31 set.
 """
 
 import ctypes
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +47,8 @@ from .wavefront3 import (
     _sb_dims,
     color_lut_rows,
 )
+
+_log = logging.getLogger(__name__)
 
 N_SCAL = 43  # scalar row: _cam_scal's 27 + shade params (see render_frame4)
 
@@ -559,7 +562,9 @@ def render_frame4(
     i32[nB,2,128] of -1: on Hopper there is no per-block cache to warm,
     so it is inert, and callers unpack it unchanged. ``s_seg`` (subwindow
     rows per serve DMA) is TPU schedule: accepted because bench.py passes
-    it, and ignored. ``prepared=None`` packs the tables first.
+    it, and ignored. ``prepared=None`` packs the tables first. A grid with
+    ``palettes_ok=False`` renders, its overflowed ids taking their
+    subwindow's most frequent entry, as in JAX.
     """
     del s_seg  # TPU serve schedule: no meaning for the per-ray march
     if not fused:
@@ -571,9 +576,9 @@ def render_frame4(
             "render_frame4(shadows=True): the fused shadow leg is ROADMAP "
             "queue 1 item 7")
     if not rg.palettes_ok:
-        raise NotImplementedError(
-            "palettes_ok=False: the brick-gather hit-id fallback is not "
-            "ported (ROADMAP queue 1 item 2)")
+        _log.warning(
+            "rendering with overflowed subwindow palettes: a few voxels in "
+            ">16-solid-id regions take the most-frequent entry's color")
     args, kw = frame_args(
         rg, cam, materials_color, sky_color=sky_color,
         sun_pos=sun_pos, sun_intensity=sun_intensity,
