@@ -1,23 +1,40 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main path — the fused v4 primary frame — on the demo
-worlds of bench.py at 1920x1080, through the entry points a user calls
-(``render_frame4`` and ``WavefrontRenderer.render_packed``), after building
-the hand-written CUDA kernel from ``voxelraytracing_tpu_torch/csrc``:
+Drives the port's paths on the demo worlds of bench.py, through the entry
+points a user calls (``render_frame4``, ``trace_wavefront4_rays`` and
+``WavefrontRenderer.render_packed``), after building the hand-written CUDA
+kernels from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all
+at once):
 
   1. the card's name and power limit (exits non-zero without a CUDA card);
-  2. build ``march4.cu``, print its registers and spills;
+  2. build the kernels; print registers, shared memory and spills of each
+     ``__global__``;
   3. the 8-chunk world (256³ voxels), built straight onto the card;
-  4. the bench camera + 48 orbit cameras: kernel vs plain PyTorch version on
-     the card, flags and packed words exactly equal;
-  5. 320x180 on the CPU: kernel vs the plain version there (the one the CPU
-     tests hold to the JAX package), with the cross-platform bar of
-     TPU_CORRECTNESS.json: 0 hit and voxel mismatches, every pixel within 2/255;
-  6. 10 frames through ``WavefrontRenderer.render_packed``: the launch count
+  4. the fused primary frame at 1920x1080, bench camera + 48 orbit
+     cameras: kernel vs plain PyTorch version on the card, flags and
+     packed words exactly equal;
+  5. 320x180, card vs the plain version on the CPU (the one the CPU tests
+     hold to the JAX package): the cross-platform bar of
+     TPU_CORRECTNESS.json, 0 hit and voxel mismatches, every pixel within
+     2/255;
+  6. 10 frames through ``render_packed``: the fused kernel's launch count
      rises by exactly 10;
-  7. timing with CUDA events: median of 5 windows, static and orbit, frame and
-     kernel alone, beside the plain version;
-  8. phases 4 and 7 on the 16-chunk world (512³ voxels, 117 MB of tables).
+  7. the shadowed frame (config2's sun, 500-step cap) at 1920x1080 and
+     1280x720, bench camera + 48 orbit cameras: fused kernel vs its plain
+     version exactly equal; split frame == fused frame, with and without
+     shadows; ``trace_wavefront4_rays`` on the shadow bundle, kernel vs
+     plain version exactly equal; shadowed pixels counted (fail if none);
+  8. 320x180 with shadows, card vs CPU: 0 hit, voxel and shadow-bit
+     mismatches, every pixel within 2/255;
+  9. 10 shadowed frames through ``render_packed`` (the fused kernel, 10
+     launches) and 10 split shadowed frames (planes kernel twice, shade
+     once per frame);
+ 10. timing with CUDA events, median of 5 windows: the primary frame and
+     kernel (1080p), the fused and split shadowed frames, each kernel
+     alone and the plain versions (1080p and 720p), with the step counts
+     the bounds need;
+ 11. phases 4 and 10's primary timing on the 16-chunk world (512³ voxels,
+     117 MB of tables), bench camera + 12 orbit cameras.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -26,6 +43,7 @@ Prints one line per phase, the kernels' JSON line, and as its last line
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -35,11 +53,25 @@ import numpy as np
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
+SIZES = ((1920, 1080), (1280, 720))
 # render_frame4 keywords of bench.py's frame (bench.py:171-175)
 BENCH_KW = dict(rounds=64, step_cap=500, steps_per_round=256, fused=True,
                 s_seg=4)
 N_ORBIT = 48
+N_ORBIT_16 = 12
 WINDOWS = 5
+# H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, FP32 op/s
+HBM_BPS = 3.35e12
+FP32_OPS = 67e12
+# FP32 operations of one march step (march4_common.cuh march_leg: 6 for
+# the position, 3 floors, 7 per axis for the DDA exit, 2 mins, 2 for the t
+# update, 2 for the water interval, 1 cell inverse); integer work and
+# loads are not counted, so the bound stays a least time
+STEP_OPS = 37
+# FP32 operations of one pixel outside the march (camera ray 24, ray
+# constants 21, shade epilogue 55 counting powf as 20)
+PIXEL_OPS = 100
+ROW_BYTES = 7 * 128 * 4  # one subwindow's sw_cont row
 
 
 class PhaseError(Exception):
@@ -55,21 +87,26 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def bench_cams(v, w, h):
-    """bench.py's static camera and its 48-step orbit (bench.py:114-145)."""
+def bench_cams(v, w, h, n_orbit=N_ORBIT):
+    """bench.py's static camera and its orbit (bench.py:114-145)."""
     from voxelraytracing_tpu_torch.ops.camera import CamData
 
     static = CamData.create((35.0, 45.0, 0.0), (v * 0.5, v * 0.75, v * 0.5),
                             70.0, (w, h))
     orbit = []
-    for i in range(N_ORBIT):
-        a = 360.0 * i / N_ORBIT
+    for i in range(n_orbit):
+        a = 360.0 * i / n_orbit
         r = v * 0.35
         eye = (v * 0.5 + r * np.cos(np.deg2rad(a)), v * 0.72,
                v * 0.5 + r * np.sin(np.deg2rad(a)))
         orbit.append(CamData.create((30.0, (a + 180.0) % 360.0, 0.0), eye,
                                     70.0, (w, h)))
     return static, orbit
+
+
+def sun_of(cam):
+    """config2's sun for a camera (benchmarks/run.py:313)."""
+    return (float(cam.pos[0]) + 900.0, 2500.0, float(cam.pos[2]) + 300.0)
 
 
 def build_world(w_chunks, device="cuda"):
@@ -98,8 +135,82 @@ def channel_diff(a, b):
     return d
 
 
+def demangle(sym):
+    """``ns::name_kernel<flag>`` of a mangled kernel symbol
+    (``_ZN<len><ns><len><name>[ILb<flag>E]...``), else the symbol."""
+    pos = 3 if sym.startswith("_ZN") else len(sym)
+    while pos < len(sym):
+        m = re.match(r"\d+", sym[pos:])
+        if not m:
+            break
+        start = pos + m.end()
+        pos = start + int(m.group())
+        if sym[start:pos].endswith("_kernel"):
+            flag = {"ILb1E": "<true>", "ILb0E": "<false>"}
+            return sym[start:pos] + flag.get(sym[pos:pos + 5], "")
+    return sym
+
+
+def ptxas_report(name):
+    """Registers, shared memory and spills of each __global__ in the
+    compiler output of ``csrc/<name>.cu``."""
+    from voxelraytracing_tpu_torch import _build
+
+    out, fn, spill = [], None, "spills ?"
+    for ln in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{fn}: {m.group(1)} regs, "
+                       f"{smem.group(1) if smem else 0} B smem, {spill}")
+            fn, spill = None, "spills ?"
+    return out
+
+
+def frame_inputs(rg, prep, cam, lut, shadows=True):
+    """``frame_args`` of a bench frame with config2's sun."""
+    from voxelraytracing_tpu_torch.ops.wavefront4 import frame_args
+
+    return frame_args(rg, cam, lut, prepared=prep, sun_pos=sun_of(cam),
+                      shadows=shadows, rounds=BENCH_KW["rounds"],
+                      steps_per_round=BENCH_KW["steps_per_round"],
+                      step_cap=BENCH_KW["step_cap"])
+
+
+def split_parts(args, kw):
+    """The three launches of a split shadowed frame, as render_frame4
+    makes them: camera planes, shadow-bundle planes, shade."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    scal, gw2, lut, swc, wmp = args
+    dims = dict(height=kw["height"], width=kw["width"])
+    row = scal.cpu().numpy()
+    srow = torch.from_numpy(t4._split_shade_row(row)).to(scal.device)
+    planes = t4.march_planes4(scal, gw2, swc, wmp, **dims)
+    bundle = t4._shadow_prep4(planes[0], planes[1], row)
+    shadow = t4.march_planes4(scal, gw2, swc, wmp, *bundle, **dims)
+    sh = (shadow[1] >> 1) & 1
+    return dict(scal=scal, srow=srow, gw2=gw2, lut=lut, swc=swc, wmp=wmp,
+                dims=dims, planes=planes, bundle=bundle, shadow=shadow,
+                sh=sh, kw=kw)
+
+
+def hit_rows(sw_cont, origins, dirs, t, hit, ns):
+    """Distinct sw_cont rows (subwindows) that hold the hit points."""
+    p = origins + dirs * t[..., None]
+    v = torch.floor(p[hit]).to(torch.int64) >> 4
+    sid = v[:, 0] + v[:, 1] * ns + v[:, 2] * ns * ns
+    return torch.unique(sid)
+
+
 def compare_on_card(rg, prep, lut, cams, phase):
-    """Kernel (through render_frame4) vs plain version on the card."""
+    """Fused primary kernel (through render_frame4) vs plain version."""
     from voxelraytracing_tpu_torch.ops.wavefront4 import (
         frame_args, march_fused4_ref, render_frame4)
 
@@ -126,18 +237,22 @@ def compare_on_card(rg, prep, lut, cams, phase):
     return worst / 255.0
 
 
-def compare_on_cpu(rg_cpu, rg, mats, v, phase):
-    """Kernel on the card vs the plain version on the CPU at 320x180."""
-    from voxelraytracing_tpu_torch.ops.wavefront4 import render_frame4
+def compare_on_cpu(rg_cpu, rg, mats, v, phase, shadows=False):
+    """Kernel on the card vs the plain version on the CPU at 320x180; with
+    shadows the shadow bits (the split path's shadow-leg hits) too."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
     static, orbit = bench_cams(v, 320, 180)
     cams = [static] + orbit[::4]
-    hit_bad = vox_bad = fl_bad = pk_bad = 0
-    within = total = 0
+    hit_bad = vox_bad = sh_bad = fl_bad = pk_bad = 0
+    within = total = shadowed = 0
     for cam in cams:
-        kw = dict(prepared=None, with_flags=True, **BENCH_KW)
-        img, fl = render_frame4(rg, cam, mats.color, **kw)
-        rimg, rfl = render_frame4(rg_cpu, cam, mats.color, **kw)
+        kw = dict(prepared=None, with_flags=True, shadows=shadows,
+                  **{**BENCH_KW, "fused": True})
+        if shadows:
+            kw["sun_pos"] = sun_of(cam)
+        img, fl = t4.render_frame4(rg, cam, mats.color, **kw)
+        rimg, rfl = t4.render_frame4(rg_cpu, cam, mats.color, **kw)
         img, fl = img.cpu(), fl.cpu()
         hit, rhit = (fl >> 1) & 1, (rfl >> 1) & 1
         hit_bad += int((hit != rhit).sum())
@@ -147,12 +262,72 @@ def compare_on_cpu(rg_cpu, rg, mats, v, phase):
         pk_bad += int((img != rimg).sum())
         within += int((channel_diff(img, rimg) <= 2).sum())
         total += img.numel()
+        if shadows:
+            sh = [split_parts(*frame_inputs(g, t4.prepare_grid4(g), cam,
+                                            mats.color))["sh"].cpu()
+                  for g in (rg, rg_cpu)]
+            sh_bad += int((sh[0] != sh[1])[both].sum())
+            shadowed += int((sh[0] & hit).sum())
     frac = within / total
-    say(phase, f"{len(cams)} cameras at 320x180, card vs CPU: hit mismatches "
-        f"{hit_bad}, voxel mismatches {vox_bad}, pixels within 2/255 "
-        f"{frac:.6f} (flag words differing {fl_bad}, packed {pk_bad})")
-    check(hit_bad == 0 and vox_bad == 0 and frac == 1.0,
+    say(phase, f"{len(cams)} cameras at 320x180{' with shadows' * shadows}, "
+        f"card vs CPU: hit mismatches {hit_bad}, voxel mismatches {vox_bad}"
+        + (f", shadow-bit mismatches {sh_bad} (shadowed hits {shadowed})"
+           if shadows else "")
+        + f", pixels within 2/255 {frac:.6f} (flag words differing {fl_bad},"
+        f" packed {pk_bad})")
+    check(hit_bad == 0 and vox_bad == 0 and sh_bad == 0 and frac == 1.0,
           "kernel misses the cross-platform bar against the CPU")
+
+
+def compare_shadows(rg, prep, lut, cams, phase):
+    """Shadowed frames at one size: fused kernel vs plain version; split
+    == fused with and without shadows; the shadow bundle through
+    trace_wavefront4_rays, kernel planes vs plain planes."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    bad = dict(fused=0, split=0, split_noshadow=0, rays=0)
+    worst = dict(fused=0, rays=0.0)
+    shadowed = hits = 0
+    w, h = cams[0].proj_size
+    for cam in cams:
+        kw = dict(prepared=prep, with_flags=True, sun_pos=sun_of(cam),
+                  **{**BENCH_KW, "fused": True})
+        img, fl = t4.render_frame4(rg, cam, lut, shadows=True, **kw)
+        args, fkw = frame_inputs(rg, prep, cam, lut)
+        rimg, rfl = t4.march_fused4_ref(*args, **fkw)
+        bad["fused"] += int((fl != rfl).sum()) + int((img != rimg).sum())
+        worst["fused"] = max(worst["fused"], int(channel_diff(img, rimg).max()))
+        simg, sfl = t4.render_frame4(rg, cam, lut, shadows=True,
+                                     **{**kw, "fused": False})
+        bad["split"] += int((simg != img).sum()) + int((sfl != fl).sum())
+        a = t4.render_frame4(rg, cam, lut, **kw)
+        b = t4.render_frame4(rg, cam, lut, **{**kw, "fused": False})
+        bad["split_noshadow"] += int((a[0] != b[0]).sum()) \
+            + int((a[1] != b[1]).sum())
+
+        p = split_parts(args, fkw)
+        ot, dt3, hitm = p["bundle"]
+        res = t4.trace_wavefront4_rays(rg, ot, dt3, hitm, width=w, height=h,
+                                       step_cap=BENCH_KW["step_cap"])
+        ref = t4.march_planes4_ref(p["scal"], p["gw2"], p["swc"], p["wmp"],
+                                   ot, dt3, hitm, **p["dims"])
+        got = p["shadow"]
+        bad["rays"] += sum(int((x.view(torch.int32) != y.view(torch.int32))
+                               .sum()) for x, y in zip(got, ref))
+        bad["rays"] += int((res.hit != (((ref[1] >> 1) & 1) != 0)).sum())
+        worst["rays"] = max(worst["rays"], max(
+            float((x - y).abs().max()) for x, y in
+            ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3]))))
+        shadowed += int(p["sh"].sum())
+        hits += int(((fl >> 1) & 1).sum())
+    say(phase, f"{len(cams)} cameras at {w}x{h}, shadows: fused kernel vs "
+        f"plain mismatching words {bad['fused']} (max channel diff "
+        f"{worst['fused']}/255); split vs fused {bad['split']}, unshadowed "
+        f"{bad['split_noshadow']}; shadow-bundle planes kernel vs plain "
+        f"{bad['rays']}; hit pixels {hits}, shadowed {shadowed}")
+    check(not any(bad.values()), "shadowed frames disagree")
+    check(shadowed > 0, "no pixel is shadowed")
+    return worst["fused"] / 255.0, worst["rays"]
 
 
 def event_ms(fn, n):
@@ -174,12 +349,17 @@ def median_windows(fn, n):
     return statistics.median(event_ms(fn, n) for _ in range(WINDOWS))
 
 
-def time_world(rg, prep, lut, v, phase):
-    """ms/frame of the frame, the kernel alone and the plain version."""
+def plain_ms(fn):
+    return statistics.median(event_ms(lambda i: fn(), 1) for _ in range(3))
+
+
+def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
+    """ms/frame of the unshadowed frame, the kernel alone and the plain
+    version at 1080p, and the primary steps of the static frame."""
     from voxelraytracing_tpu_torch.ops.wavefront4 import (
         frame_args, march_fused4, march_fused4_ref, render_frame4)
 
-    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    static, orbit = bench_cams(v, WIDTH, HEIGHT, n_orbit)
     tok = [None]
 
     def frame(cam):
@@ -194,22 +374,22 @@ def time_world(rg, prep, lut, v, phase):
 
     out = {}
     out["frame_static"] = median_windows(lambda i: frame(static), N_ORBIT)
-    out["frame_orbit"] = median_windows(lambda i: frame(orbit[i % N_ORBIT]),
+    out["frame_orbit"] = median_windows(lambda i: frame(orbit[i % n_orbit]),
                                         N_ORBIT)
     sa, skw = args_of(static)
     out["kernel_static"] = median_windows(
         lambda i: march_fused4(*sa, **skw), N_ORBIT)
     oargs = [args_of(c) for c in orbit]
     out["kernel_orbit"] = median_windows(
-        lambda i: march_fused4(*oargs[i % N_ORBIT][0], **oargs[i % N_ORBIT][1]),
-        N_ORBIT)
-    plain = [event_ms(lambda i: march_fused4_ref(*sa, **skw), 1)
-             for _ in range(3)]
-    out["plain_static"] = statistics.median(plain)
-    plain = [event_ms(lambda i, c=c: march_fused4_ref(*oargs[c][0],
-                                                      **oargs[c][1]), 1)
-             for c in (0, 16, 32)]
-    out["plain_orbit"] = statistics.median(plain)
+        lambda i: march_fused4(*oargs[i % n_orbit][0],
+                               **oargs[i % n_orbit][1]), N_ORBIT)
+    out["plain_static"] = plain_ms(lambda: march_fused4_ref(*sa, **skw))
+    out["plain_orbit"] = statistics.median(
+        event_ms(lambda i, c=c: march_fused4_ref(*oargs[c][0], **oargs[c][1]),
+                 1) for c in (0, n_orbit // 3, 2 * n_orbit // 3))
+    fl = march_fused4(*sa, **skw)[1]
+    out["steps"] = int(((fl >> 5) & 0xFFF).sum())
+    out["rows"] = int(hit_rows_of(rg, sa, skw, fl).numel())
     rays = WIDTH * HEIGHT
     for k in ("static", "orbit"):
         say(phase, f"{k}: frame {out['frame_' + k]:.4f} ms "
@@ -218,7 +398,179 @@ def time_world(rg, prep, lut, v, phase):
             f"({rays / out['kernel_' + k] / 1e3:.3f} Mrays/s), plain "
             f"{out['plain_' + k]:.2f} ms "
             f"({rays / out['plain_' + k] / 1e3:.3f} Mrays/s)")
+    say(phase, f"static steps {out['steps']}, hit subwindow rows "
+        f"{out['rows']}")
     return out
+
+
+def hit_rows_of(rg, args, kw, fl):
+    """Distinct subwindow rows holding a primary frame's hit points."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    h, w = kw["height"], kw["width"]
+    ts = t4.march_planes4(args[0], args[1], args[3], args[4], height=h,
+                          width=w)[0]
+    sf = [float(x) for x in args[0].cpu().numpy()]
+    rays = t4._camera_rays(sf, *t4._pixels(h, w, ts.device))
+    o = torch.stack(rays[:3], -1).reshape(h, w, 3)
+    d = torch.stack(rays[3:], -1).reshape(h, w, 3)
+    ns = t4._world_dims(args[3], args[4])[1]
+    return hit_rows(args[3], o, d, ts, ((fl >> 1) & 1) != 0, ns)
+
+
+def time_shadows(rg, prep, lut, v, size, phase):
+    """ms of the fused and split shadowed frames, each kernel alone and
+    the plain versions, plus the step and row counts of the static
+    frame."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    w, h = size
+    static, orbit = bench_cams(v, w, h)
+    out = {}
+
+    def frame(cam, fused):
+        t4.render_frame4(rg, cam, lut, prepared=prep, shadows=True,
+                         sun_pos=sun_of(cam), **{**BENCH_KW, "fused": fused})
+
+    for fused, name in ((True, "fused"), (False, "split")):
+        out[f"{name}_frame_static"] = median_windows(
+            lambda i: frame(static, fused), N_ORBIT)
+        out[f"{name}_frame_orbit"] = median_windows(
+            lambda i: frame(orbit[i % N_ORBIT], fused), N_ORBIT)
+    sa, skw = frame_inputs(rg, prep, static, lut)
+    oargs = [frame_inputs(rg, prep, c, lut) for c in orbit]
+    out["fused_kernel_static"] = median_windows(
+        lambda i: t4.march_fused4(*sa, **skw), N_ORBIT)
+    out["fused_kernel_orbit"] = median_windows(
+        lambda i: t4.march_fused4(*oargs[i % N_ORBIT][0],
+                                  **oargs[i % N_ORBIT][1]), N_ORBIT)
+    p = split_parts(sa, skw)
+    sc, g, swc, wmp, dims = p["scal"], p["gw2"], p["swc"], p["wmp"], p["dims"]
+    bundle = p["bundle"]
+    ts, fl, wa, we = p["planes"]
+    skw2 = dict(show_steps=False, shadows=True, max_steps=skw["max_steps"])
+    out["planes_camera"] = median_windows(
+        lambda i: t4.march_planes4(sc, g, swc, wmp, **dims), N_ORBIT)
+    out["planes_rays"] = median_windows(
+        lambda i: t4.march_planes4(sc, g, swc, wmp, *bundle, **dims), N_ORBIT)
+    out["shade"] = median_windows(
+        lambda i: t4.shade4(p["srow"], p["lut"], ts, fl, wa, we, p["sh"],
+                            **skw2), N_ORBIT)
+    out["plain_fused"] = plain_ms(lambda: t4.march_fused4_ref(*sa, **skw))
+    out["plain_planes_camera"] = plain_ms(
+        lambda: t4.march_planes4_ref(sc, g, swc, wmp, **dims))
+    out["plain_planes_rays"] = plain_ms(
+        lambda: t4.march_planes4_ref(sc, g, swc, wmp, *bundle, **dims))
+    out["plain_shade"] = plain_ms(
+        lambda: t4.shade4_ref(p["srow"], p["lut"], ts, fl, wa, we, p["sh"],
+                              **skw2))
+    # what the bounds need: steps of both legs, rows holding hit points
+    out["steps_primary"] = int(((fl >> 5) & 0xFFF).sum())
+    sfl = p["shadow"][1]
+    out["steps_shadow"] = int(((sfl >> 5) & 0xFFF).sum())
+    ns = t4._world_dims(swc, wmp)[1]
+    prim = hit_rows_of(rg, sa, skw, fl)
+    shad = hit_rows(swc, bundle[0], bundle[1], p["shadow"][0],
+                    ((sfl >> 1) & 1) != 0, ns)
+    out["rows_primary"] = int(prim.numel())
+    out["rows_shadow"] = int(shad.numel())
+    out["rows_both"] = int(torch.unique(torch.cat([prim, shad])).numel())
+    out["pixels"] = w * h
+    rays2 = 2 * w * h
+    for name in ("fused", "split"):
+        for k in ("static", "orbit"):
+            t = out[f"{name}_frame_{k}"]
+            say(phase, f"{w}x{h} {name} shadowed frame {k}: {t:.4f} ms "
+                f"({rays2 / t / 1e3:.3f} Mrays/s at 2 rays/pixel)")
+    for k in ("fused_kernel_static", "fused_kernel_orbit", "planes_camera",
+              "planes_rays", "shade"):
+        say(phase, f"{w}x{h} {k}: {out[k]:.4f} ms")
+    say(phase, f"{w}x{h} plain static: fused {out['plain_fused']:.2f} ms, "
+        f"planes camera {out['plain_planes_camera']:.2f} ms, planes rays "
+        f"{out['plain_planes_rays']:.2f} ms, shade "
+        f"{out['plain_shade']:.2f} ms")
+    say(phase, f"{w}x{h} static steps: primary {out['steps_primary']}, "
+        f"shadow {out['steps_shadow']}, all "
+        f"{out['steps_primary'] + out['steps_shadow']}; hit subwindow rows: "
+        f"primary {out['rows_primary']}, shadow {out['rows_shadow']}")
+    return out
+
+
+def bound(bytes_moved, ops):
+    """(least ms, what bounds it) for ``bytes_moved`` at the HBM rate and
+    ``ops`` at the FP32 rate."""
+    t_b, t_o = bytes_moved / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def shadow_bounds(sh):
+    """Least times of the shadowed frame's kernels on the static camera:
+    tables as the rows holding hit points, read once; inputs read once and
+    outputs written once; the march steps both legs took."""
+    px = sh["pixels"]
+    return {
+        "fused_kernel_static": bound(
+            sh["rows_both"] * ROW_BYTES + 8 * px,
+            (sh["steps_primary"] + sh["steps_shadow"]) * STEP_OPS
+            + px * PIXEL_OPS),
+        # camera planes: 4 planes out; camera ray + ray constants a pixel
+        "planes_camera": bound(sh["rows_primary"] * ROW_BYTES + 16 * px,
+                               sh["steps_primary"] * STEP_OPS + px * 45),
+        # bundle planes: origins, directions and the active byte in too
+        "planes_rays": bound(sh["rows_shadow"] * ROW_BYTES + 41 * px,
+                             sh["steps_shadow"] * STEP_OPS + px * 21),
+        # shade: 5 planes in, packed word out
+        "shade": bound(24 * px, px * PIXEL_OPS),
+    }
+
+
+def count_main_path(rg, mats, v, phase):
+    """The main paths, each driven with the counts set to 0 just before
+    and read just after: 10 unshadowed and 10 shadowed frames through
+    render_packed (fused), 10 split shadowed frames."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        STEP_CAP, STEPS_PER_ROUND, RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    counters = (t4.march_fused4, t4.march_planes4, t4.shade4)
+    _, orbit = bench_cams(v, WIDTH, HEIGHT)
+    counts = {}
+    renderer = WavefrontRenderer(mats)
+    for shadows in (False, True):
+        for c in counters:
+            c.launches = 0
+        for cam in orbit[:10]:
+            settings = RenderSettings(sun_pos=sun_of(cam), shadows=shadows)
+            img = renderer.render_packed(rg, cam, settings)
+        torch.cuda.synchronize()
+        counts[shadows] = [c.launches for c in counters]
+        args, kw = t4.frame_args(
+            rg, orbit[9], mats.color, sun_pos=settings.sun_pos,
+            shadows=shadows, steps_per_round=STEPS_PER_ROUND,
+            step_cap=STEP_CAP, prepared=t4.prepare_grid4(rg))
+        rimg, _ = t4.march_fused4_ref(*args, **kw)
+        alpha_ok = bool(((img >> 24) & 255 == 255).all())
+        say(phase, f"render_packed x10 shadows={shadows}: launches "
+            f"fused/planes/shade {counts[shadows]}, frame "
+            f"{tuple(img.shape)} {img.dtype}, alpha ok {alpha_ok}, last "
+            f"frame == plain version: {bool((img == rimg).all())}")
+        check(counts[shadows] == [10, 0, 0],
+              "render_packed did not launch the fused kernel once per frame")
+        check(alpha_ok and bool((img == rimg).all()),
+              "render_packed frame disagrees with the plain version")
+    for c in counters:
+        c.launches = 0
+    prep = t4.prepare_grid4(rg)
+    for cam in orbit[:10]:
+        t4.render_frame4(rg, cam, mats.color, prepared=prep, shadows=True,
+                         sun_pos=sun_of(cam), **{**BENCH_KW, "fused": False})
+    torch.cuda.synchronize()
+    counts["split"] = [c.launches for c in counters]
+    say(phase, f"split shadowed frames x10: launches fused/planes/shade "
+        f"{counts['split']}")
+    check(counts["split"] == [0, 20, 10],
+          "the split frame did not launch planes twice and shade once")
+    return counts
 
 
 def main():
@@ -227,13 +579,9 @@ def main():
               file=sys.stderr)
         return 2
     from voxelraytracing_tpu_torch import _build
-    from voxelraytracing_tpu_torch.models.raytracer import (
-        STEP_CAP, STEPS_PER_ROUND, RenderSettings, WavefrontRenderer)
     from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
-    from voxelraytracing_tpu_torch.ops.wavefront4 import (
-        frame_args, march_fused4, march_fused4_ref, prepare_grid4)
+    from voxelraytracing_tpu_torch.ops.wavefront4 import prepare_grid4
 
-    dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -243,61 +591,100 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.load("march4")
-    ptxas = [ln.strip() for ln in _build.build_log("march4").splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(2, f"built march4.cu in {time.perf_counter() - t0:.1f} s: "
-        + " | ".join(ptxas))
+    _build.build_all()
+    say(2, f"built {', '.join(_build.KERNELS)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name in _build.KERNELS:
+        _build.load(name)
+        for ln in ptxas_report(name):
+            say(2, f"{name}.cu {ln}")
 
-    results = {}
-    for w_chunks in (8, 16):
-        t0 = time.perf_counter()
-        rg, mats, v = build_world(w_chunks)
-        prep = prepare_grid4(rg)
-        torch.cuda.synchronize()
-        mb = prep.sw_cont.numel() * 4 / 1e6
-        say(3, f"{w_chunks}-chunk world ({v}^3 voxels): host build onto the "
-            f"card {time.perf_counter() - t0:.1f} s, sw_cont {mb:.1f} MB")
-        lut = color_lut_rows(mats.color).to(dev)
-        static, orbit = bench_cams(v, WIDTH, HEIGHT)
-        err = compare_on_card(rg, prep, lut, [static] + orbit, 4)
-        if w_chunks == 8:
-            compare_on_cpu(build_world(8, device="cpu")[0], rg, mats, v, 5)
+    t0 = time.perf_counter()
+    rg, mats, v = build_world(8)
+    prep = prepare_grid4(rg)
+    torch.cuda.synchronize()
+    say(3, f"8-chunk world ({v}^3 voxels): host build onto the card "
+        f"{time.perf_counter() - t0:.1f} s, sw_cont "
+        f"{prep.sw_cont.numel() * 4 / 1e6:.1f} MB")
+    lut = color_lut_rows(mats.color).to(rg.sw_solid.device)
+    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    err = compare_on_card(rg, prep, lut, [static] + orbit, 4)
+    rg_cpu = build_world(8, device="cpu")[0]
+    compare_on_cpu(rg_cpu, rg, mats, v, 5)
+    errs = {}
+    for size in SIZES:
+        s, o = bench_cams(v, *size)
+        errs[size] = compare_shadows(rg, prep, lut, [s] + o, 7)
+    compare_on_cpu(rg_cpu, rg, mats, v, 8, shadows=True)
+    counts = count_main_path(rg, mats, v, 9)
+    t8 = time_primary(rg, prep, lut, v, 10)
+    ts = {size: time_shadows(rg, prep, lut, v, size, 10) for size in SIZES}
+    del rg, prep, rg_cpu
+    torch.cuda.empty_cache()
 
-            renderer = WavefrontRenderer(mats)
-            settings = RenderSettings(sun_pos=(0.0, 10_000.0, 0.0))
-            march_fused4.launches = 0
-            for cam in orbit[:10]:
-                img = renderer.render_packed(rg, cam, settings)
-            torch.cuda.synchronize()
-            launches = march_fused4.launches
-            args, kw = frame_args(
-                rg, orbit[9], mats.color, sun_pos=settings.sun_pos,
-                steps_per_round=STEPS_PER_ROUND, step_cap=STEP_CAP,
-                prepared=prepare_grid4(rg))
-            rimg, _ = march_fused4_ref(*args, **kw)
-            alpha_ok = bool(((img >> 24) & 255 == 255).all())
-            say(6, f"render_packed x10: march_fused4 launches {launches}, "
-                f"frame {tuple(img.shape)} {img.dtype}, alpha ok {alpha_ok}, "
-                f"last frame == plain version: {bool((img == rimg).all())}")
-            check(launches == 10, "render_packed did not launch the kernel "
-                  "once per frame")
-            check(alpha_ok and bool((img == rimg).all()),
-                  "render_packed frame disagrees with the plain version")
-        results[w_chunks] = (time_world(rg, prep, lut, v, 7 if w_chunks == 8
-                                        else 8), err)
-        del rg, prep
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rg16, _, v16 = build_world(16)
+    prep16 = prepare_grid4(rg16)
+    torch.cuda.synchronize()
+    say(3, f"16-chunk world ({v16}^3 voxels): host build onto the card "
+        f"{time.perf_counter() - t0:.1f} s, sw_cont "
+        f"{prep16.sw_cont.numel() * 4 / 1e6:.1f} MB")
+    s16, o16 = bench_cams(v16, WIDTH, HEIGHT, N_ORBIT_16)
+    err = max(err, compare_on_card(rg16, prep16, lut, [s16] + o16, 4))
+    time_primary(rg16, prep16, lut, v16, 11, N_ORBIT_16)
+    del rg16, prep16
+    torch.cuda.empty_cache()
 
-    t8, err8 = results[8]
-    err = max(err8, results[16][1])
-    print(json.dumps({"kernels": [{
-        "name": "march_fused4", "route": "cuda",
-        "source": "voxelraytracing_tpu_torch/csrc/march4.cu",
-        "replaces": "voxelraytracing_tpu/ops/wavefront4.py:185",
-        "launches": launches, "max_abs_err": err,
-        "ms": t8["kernel_static"], "plain_ms": t8["plain_static"],
-    }]}))
+    px = WIDTH * HEIGHT
+    b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,
+                      t8["steps"] * STEP_OPS + px * PIXEL_OPS)
+    say(10, f"{WIDTH}x{HEIGHT} march_fused4 (primary): {t8['kernel_static']:.4f}"
+        f" ms, least {b_primary[0]:.5f} ms, bound by {b_primary[1]}")
+    for size in SIZES:
+        b = shadow_bounds(ts[size])
+        for k, (bms, by) in b.items():
+            say(10, f"{size[0]}x{size[1]} {k}: {ts[size][k]:.4f} ms, least "
+                f"{bms:.5f} ms, bound by {by}")
+    sh = ts[(WIDTH, HEIGHT)]
+    b = shadow_bounds(sh)
+    b_fused, b_cam, b_rays, b_shade = (
+        b["fused_kernel_static"], b["planes_camera"], b["planes_rays"],
+        b["shade"])
+    src = "voxelraytracing_tpu_torch/csrc/"
+    kernels = [
+        dict(name="march_fused4", source=src + "march4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront4.py:185",
+             launches=counts[False][0], max_abs_err=err,
+             ms=t8["kernel_static"], plain_ms=t8["plain_static"],
+             bound=b_primary),
+        dict(name="march_fused4_shadow", source=src + "march4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront4.py:1280",
+             launches=counts[True][0],
+             max_abs_err=max(e[0] for e in errs.values()),
+             ms=sh["fused_kernel_static"], plain_ms=sh["plain_fused"],
+             bound=b_fused),
+        dict(name="march_planes4", source=src + "planes4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront4.py:1399",
+             launches=counts["split"][1],
+             max_abs_err=max(e[1] for e in errs.values()),
+             ms=sh["planes_camera"] + sh["planes_rays"],
+             plain_ms=sh["plain_planes_camera"] + sh["plain_planes_rays"],
+             bound=(b_cam[0] + b_rays[0],
+                    max(b_cam, b_rays)[1])),
+        dict(name="shade4", source=src + "shade4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront3.py:1909",
+             launches=counts["split"][2], max_abs_err=0.0,
+             ms=sh["shade"], plain_ms=sh["plain_shade"], bound=b_shade),
+    ]
+    line = []
+    for k in kernels:
+        (bms, by) = k.pop("bound")
+        line.append(dict(name=k["name"], route="cuda", source=k["source"],
+                         replaces=k["replaces"], launches=k["launches"],
+                         max_abs_err=k["max_abs_err"], ms=k["ms"],
+                         plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
+                         library_ms=None))
+    print(json.dumps({"kernels": line}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,6 +147,25 @@ def test_march_products_match_jax_trace(world, i):
                                rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("i", range(len(CAMS)))
+def test_trace_wavefront4_matches_jax(world, i):
+    """The port's ``trace_wavefront4`` (the state-plane march of the
+    camera rays and its WavefrontResult finish) against JAX's, under the
+    tolerances of test_march_products_match_jax_trace; normals exact."""
+    _, trg, _, gold = world
+    ref = gold[f"trace{i}"]
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, SIZE)
+    res = t4.trace_wavefront4(trg, np.asarray(CAMS[i][1], np.float32),
+                              cam=cam, step_cap=500, rounds=64)
+    for f in ("hit", "voxel", "steps", "norm"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                      np.asarray(getattr(ref, f)), f)
+    np.testing.assert_allclose(res.t.numpy(), np.asarray(ref.t), rtol=2e-6,
+                               atol=0)
+    np.testing.assert_allclose(res.water_dist.numpy(),
+                               np.asarray(ref.water_dist), rtol=0, atol=1e-4)
+
+
 def test_fused_frame_camera_outside_world(world):
     _, trg, mats, gold = world
     port = _port_frame(trg, mats, OUTSIDE)
@@ -247,9 +266,16 @@ def test_prepared_tables_and_token(world):
 
 
 def test_unported_modes_raise(world):
+    """What the port still refuses: the retry knobs of the split path
+    (they come with ``_bounce_retry4``, ROADMAP queue 1 item 10) and a
+    ``prepared`` token whose tables do not fit together."""
     _, trg, mats, _ = world
     cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, SIZE)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t4.render_frame4(trg, cam, mats.color, **{**KW, "fused": False})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t4.render_frame4(trg, cam, mats.color, shadows=True, **KW)
+    with pytest.raises(TypeError, match="compact_tiles"):
+        t4.render_frame4(trg, cam, mats.color, compact_tiles=64,
+                         **{**KW, "fused": False})
+    prep = t4.prepare_grid4(trg)
+    for bad in (prep._replace(sw_cont=prep.sw_cont[:-1]),
+                prep._replace(wmeta_pad=torch.cat([prep.wmeta_pad] * 2))):
+        with pytest.raises(ValueError, match="cube|subwindows"):
+            t4.render_frame4(trg, cam, mats.color, prepared=bad, **KW)

@@ -44,14 +44,22 @@ def test_every_module_imports_without_jax():
 
 
 def test_kernel_build_is_lazy_and_ieee():
-    """Importing the port compiles nothing; the build keeps IEEE
-    arithmetic (no FMA contraction, no fast math) for sm_90a."""
+    """Importing the port compiles nothing; every CUDA source builds with
+    IEEE arithmetic (no FMA contraction, no fast math) for sm_90a, keyed
+    on its source and the shared headers."""
     assert _build._libs == {}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "--fmad=false" in flags and "fast_math" not in flags
     assert "arch=compute_90a,code=sm_90a" in flags
-    src, lib = _build.library_path("march4")
-    assert src.is_file() and lib.parent == ROOT / "build" / "kernels"
+    csrc = ROOT / "voxelraytracing_tpu_torch" / "csrc"
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
+    assert set(_build.KERNELS) >= {"march4", "planes4", "shade4"}
+    for name in _build.KERNELS:
+        src, lib = _build.library_path(name)
+        assert src.is_file() and lib.parent == ROOT / "build" / "kernels"
+        assert '#include "march4_common.cuh"' in src.read_text()
+        for fn in _build._SIGNATURES[name]:
+            assert f'extern "C" int {fn}(' in src.read_text()
     if shutil.which("nvcc") is None and not Path(
             "/usr/local/cuda/bin/nvcc").is_file():
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -59,7 +67,7 @@ def test_kernel_build_is_lazy_and_ieee():
 
 
 def test_wrapper_refuses_other_devices():
-    """march_fused4 runs the kernel on CUDA tensors, the plain version on
+    """Each wrapper runs its kernel on CUDA tensors, its plain version on
     CPU tensors, and raises on anything else."""
     meta = dict(device="meta")
     args = (torch.empty(43, **meta), torch.empty(2, 128, dtype=torch.int32, **meta),
@@ -68,6 +76,11 @@ def test_wrapper_refuses_other_devices():
             torch.empty(1, 1, 128, dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="cuda or cpu"):
         t4.march_fused4(*args, height=8, width=16)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t4.march_planes4(args[0], args[1], *args[3:], height=8, width=16)
+    plane = torch.empty(8, 16, **meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t4.shade4(args[0], args[2], plane, plane.int(), plane, plane, None)
 
 
 def test_entry_points_default_to_the_card():

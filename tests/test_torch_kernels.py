@@ -1,4 +1,7 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the fused frame (with and without the shadow leg), the state-plane
+march (camera rays and per-ray bundles) and the split shade, each equal
+word for word, and each wrapper refusing a wrong dtype or shape.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -29,6 +32,7 @@ CAMS = [
     ((-20.0, 300.0, 0.0), (64.0, 20.0, 64.0)),
     ((30.0, 45.0, 0.0), (-50.0, 75.0, 64.0)),  # outside the world
 ]
+SUN = (1000.0, 2500.0, 500.0)
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +58,29 @@ def _both(rg, prep, mats, cam, **kw):
     return got, t4.march_fused4_ref(*args, **fkw)
 
 
+def _planes(rg, prep, mats, cam, bundle=False):
+    """Kernel and plain state planes of a frame's camera rays, or with
+    ``bundle`` of its shadow rays; plus the frame's inputs."""
+    args, kw = t4.frame_args(rg, cam, mats.color, prepared=prep,
+                             step_cap=500, sun_pos=SUN)
+    scal, gw2, lut, swc, wmp = args
+    dims = dict(height=kw["height"], width=kw["width"])
+    rays = ()
+    if bundle:
+        ts, fl, _, _ = t4.march_planes4_ref(scal, gw2, swc, wmp, **dims)
+        rays = t4._shadow_prep4(ts, fl, scal.cpu().numpy())
+    before = t4.march_planes4.launches
+    got = t4.march_planes4(scal, gw2, swc, wmp, *rays, **dims)
+    torch.cuda.synchronize()
+    assert t4.march_planes4.launches == before + 1
+    return got, t4.march_planes4_ref(scal, gw2, swc, wmp, *rays, **dims), \
+        (args, kw)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("i", range(len(CAMS)))
 @pytest.mark.parametrize("size", [(200, 120), (72, 36)])
 def test_kernel_equals_plain_version(card_world, i, size):
@@ -76,6 +103,74 @@ def test_kernel_step_cap_and_heatmap(card_world, cap):
     assert torch.equal(fl, rfl) and torch.equal(img, rimg)
     if cap:
         assert int(((fl >> 5) & 0xFFF).max()) == cap
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
+@pytest.mark.parametrize("size", [(200, 120), (72, 36)])
+def test_fused_shadow_kernel_equals_plain_version(card_world, i, size):
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, size)
+    (img, fl), (rimg, rfl) = _both(rg, prep, mats, cam, step_cap=500,
+                                   sun_pos=SUN, shadows=True)
+    assert torch.equal(fl, rfl) and torch.equal(img, rimg)
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
+@pytest.mark.parametrize("bundle", [False, True])
+def test_planes_kernel_equals_plain_version(card_world, i, bundle):
+    """Camera rays, and per-ray bundles (the frame's shadow rays), at
+    200x120: four superblocks, some of them without an active ray."""
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+    got, ref, _ = _planes(rg, prep, mats, cam, bundle)
+    assert all(_same_bits(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
+@pytest.mark.parametrize("shadows", [False, True])
+def test_shade_kernel_equals_plain_version(card_world, i, shadows):
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+    (ts, fl, wa, we), _, (args, kw) = _planes(rg, prep, mats, cam)
+    row = torch.from_numpy(t4._split_shade_row(args[0].cpu().numpy())).cuda()
+    sh = (fl >> 3) & 1  # any 0/1 plane serves as a shadow plane here
+    skw = dict(show_steps=i == 0, shadows=shadows, max_steps=kw["max_steps"])
+    before = t4.shade4.launches
+    img = t4.shade4(row, args[2], ts, fl, wa, we, sh, **skw)
+    torch.cuda.synchronize()
+    assert t4.shade4.launches == before + 1
+    assert torch.equal(img, t4.shade4_ref(row, args[2], ts, fl, wa, we, sh,
+                                          **skw))
+
+
+def test_split_frame_equals_fused_on_the_card(card_world):
+    rg, prep, mats = card_world
+    for i in range(4):
+        cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+        kw = dict(prepared=prep, with_flags=True, step_cap=500, sun_pos=SUN,
+                  shadows=True)
+        a = t4.render_frame4(rg, cam, mats.color, fused=True, **kw)
+        b = t4.render_frame4(rg, cam, mats.color, fused=False, **kw)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_new_kernels_reject_bad_inputs(card_world):
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, (64, 32))
+    (ts, fl, wa, we), _, (args, _) = _planes(rg, prep, mats, cam)
+    scal, gw2, lut, swc, wmp = args
+    o = torch.zeros(32, 64, 3, device="cuda")
+    act = torch.zeros(32, 64, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="active"):
+        t4.march_planes4(scal, gw2, swc, wmp, o, o, act.int(), height=32,
+                         width=64)
+    with pytest.raises(ValueError, match="origins"):
+        t4.march_planes4(scal, gw2, swc, wmp, o[:16], o, act, height=32,
+                         width=64)
+    with pytest.raises(ValueError, match="fl"):
+        t4.shade4(scal, lut, ts, fl.float(), wa, we, None)
+    with pytest.raises(ValueError, match="sh"):
+        t4.shade4(scal, lut, ts, fl, wa, we, fl[:, :8], shadows=True)
 
 
 def test_kernel_rejects_bad_tables(card_world):

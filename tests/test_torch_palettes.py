@@ -34,7 +34,7 @@ KW = dict(sun_pos=(1000.0, 2500.0, 500.0), step_cap=500, rounds=64,
 
 
 def _noise_world():
-    """tests/test_torch_world.py's noise grid, through the JAX builder."""
+    """tests/test_torch_world.py's noise grid, built by the JAX package."""
     rng = np.random.default_rng(20261016)
     w = 2
     styles = {

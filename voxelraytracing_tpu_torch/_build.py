@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point. At first use it is
+Each ``csrc/<name>.cu`` exposes plain C entry points. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` (beside the package; listed in ``.gitignore``), keyed on
-a hash of the source and the flags, and loaded with ``ctypes``. Nothing
-is compiled when the package is imported, so the CPU tests import every
-module on machines without ``nvcc``.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+and loaded with ``ctypes``. Nothing is compiled when the package is
+imported, so the CPU tests import every module on machines without
+``nvcc``. :func:`build_all` runs one ``nvcc`` per source, all at once.
 
 The flags keep IEEE arithmetic: ``--fmad=false`` stops ``a*b+c`` from
 contracting into an FMA, so every multiply and add rounds on its own as
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -32,9 +34,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, or ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     "march4": {
-        "march_fused4_launch": (_I, [_P] * 7 + [_I] * 6 + [_F, _P]),
+        "march_fused4_launch": (_I, [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+    },
+    "planes4": {
+        "march_planes4_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
+    },
+    "shade4": {
+        "shade4_launch": (_I, [_P] * 8 + [_I] * 3 + [_F, _P]),
     },
 }
+KERNELS = tuple(_SIGNATURES)
 
 _lock = threading.Lock()
 _libs = {}
@@ -53,9 +62,13 @@ def nvcc_path():
 
 
 def library_path(name):
-    """Where ``csrc/<name>.cu`` builds to, keyed on its source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed on its source, the shared
+    headers and the flags."""
     src = _PKG / "csrc" / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
@@ -76,6 +89,13 @@ def build(name):
     out.with_suffix(".log").write_text(r.stdout + r.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names=KERNELS):
+    """Build every named kernel, one ``nvcc`` each, all started together;
+    returns their library paths."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def build_log(name):

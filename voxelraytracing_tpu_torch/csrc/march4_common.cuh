@@ -1,0 +1,327 @@
+// Device functions shared by the v4 kernels for Hopper (sm_90a): the
+// camera ray, one march leg through the bit-plane world, the hit-id decode,
+// the flags word and the per-pixel shade epilogue.
+//
+// march4.cu (fused frame, with or without the shadow leg), planes4.cu
+// (state-plane march) and shade4.cu (split shade) all build on these, so
+// the fused and the split frame share one march and one shade: built alike
+// (--fmad=false, IEEE division and sqrt), they agree bit for bit, as the
+// JAX package's fused and split dispatches do. Every multiply and add
+// rounds on its own in the op order of the JAX kernel
+// (voxelraytracing_tpu/ops/wavefront4.py:_march_kernel4) and of the plain
+// PyTorch versions: positions o + d*t and the DDA exits land on voxel
+// faces, where one ulp flips floor().
+//
+// Layouts (int32 words holding the JAX package's uint32 bits):
+//   scal      f32[43]: 0-2 origin, 3 world edge v, 4-5 2/W 2/H, 6-11 proj
+//             affine, 12-20 view rows, 21 band y0, 23 step cap, 25-26
+//             tile counts tx ty, 27-29 sun dir, 30 sun intensity, 31-33
+//             sky; the fused row then has 34-36 sun position and 37 the
+//             shadow ambient, the split shade row the ambient at 34
+//   gw2       [256]: global (jump|liquid) pair plane, window wg at word
+//             wg>>4, shift (wg&15)*2
+//   lut       f32[6,128]: color rows r0 r1 g0 g1 b0 b1 (row pair = ids
+//             0-127 | 128-255)
+//   sw_cont   [Ns^3,7,128]: rows solid | liquid | pid0..3 | interleaved
+//             brick meta (words 0-3) + palette (words 4-7)
+//   wmeta_pad [Nw^3,1,128]: interleaved subwindow meta (words 0-3)
+//   per-pixel planes and outputs: [height, width] in image order
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace v4 {
+
+constexpr int kTileW = 16;
+constexpr int kTileH = 8;
+constexpr int kThreads = kTileW * kTileH;
+constexpr int kScal = 43;
+constexpr int kRow = 128;              // words per table row
+constexpr int kSubRows = 7;            // rows per subwindow in sw_cont
+constexpr float kEpsT = 1e-3f;         // EPS_T
+constexpr float kBig = 1e9f;           // _BIG
+constexpr float kBigIv = 9900000.0f;   // 0.99 * _BIG_IV
+constexpr int kCapNone = 1000000000;   // step cap when scal[23] <= 0.5
+
+__device__ __forceinline__ unsigned ld(const int* p) {
+  return static_cast<unsigned>(__ldg(p));
+}
+
+__device__ __forceinline__ float inv_dir(float c) {
+  const float c2 = c >= 0.0f ? fmaxf(c, 1e-7f) : fminf(c, -1e-7f);
+  return 1.0f / c2;
+}
+
+// DDA distance to the exit face of the current cell along one axis.
+__device__ __forceinline__ float axis_exit(float pc, float sgf, float ivs,
+                                          bool big, float cell, float icell) {
+  const float ps = pc * sgf;
+  const float b = floorf(ps * icell) + 1.0f;
+  return big ? kBig : (b * cell - ps) * ivs;
+}
+
+__device__ __forceinline__ float sstep(float e0, float inv_span, float x) {
+  float q = (x - e0) * inv_span;
+  q = fminf(fmaxf(q, 0.0f), 1.0f);
+  return q * q * (3.0f - 2.0f * q);
+}
+
+__device__ __forceinline__ unsigned q8(float c) {
+  return static_cast<unsigned>(static_cast<int>(fminf(fmaxf(c, 0.0f), 1.0f) * 255.0f));
+}
+
+__device__ __forceinline__ int step_cap_of(const float* s) {
+  return s[23] > 0.5f ? static_cast<int>(s[23]) : kCapNone;
+}
+
+__device__ __forceinline__ bool inside_world(float x, float y, float z, float v) {
+  return x >= 0.0f && y >= 0.0f && z >= 0.0f && x < v && y < v && z < v;
+}
+
+// A whole 16x8 tile inside the frame (scal[25-26] = tile counts).
+__device__ __forceinline__ bool tile_valid(const float* s, int px, int py) {
+  return static_cast<float>(px / kTileW) < s[25] && static_cast<float>(py / kTileH) < s[26];
+}
+
+// Camera ray of pixel (px, py): wavefront3._ray_dirs op order, divided by
+// the IEEE sqrt of the squared length.
+__device__ __forceinline__ void camera_dir(const float* s, int px, int py, float& dx,
+                                           float& dy, float& dz) {
+  const float fx = static_cast<float>(px);
+  const float fy = static_cast<float>(py) + s[21];
+  const float x = fx * s[4] - 1.0f;
+  const float y = fy * s[5] - 1.0f;
+  const float ex = x * s[6] - y * s[7] + s[8];
+  const float ey = x * s[9] - y * s[10] + s[11];
+  dx = ex * s[12] + ey * s[15] - s[18];
+  dy = ex * s[13] + ey * s[16] - s[19];
+  dz = ex * s[14] + ey * s[17] - s[20];
+  const float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
+  dx = dx / nrm;
+  dy = dy / nrm;
+  dz = dz / nrm;
+}
+
+// The bit-plane world: the pair plane in shared memory, the tables in
+// global memory (read-only path).
+struct World {
+  const unsigned* gpair;
+  const int* sw_cont;
+  const int* wmeta_pad;
+  int nw, ns, gs, nwg;
+  float v;
+};
+
+// A ray and its per-ray DDA constants (wavefront4.py _make_leg).
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float gfx, gfy, gfz, isx, isy, isz;
+  bool bgx, bgy, bgz;
+  float t_exit;
+};
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy,
+                                        float dz, float v) {
+  Ray r;
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
+  const float sx = dx > 0.0f ? 1.0f : 0.0f;
+  const float sy = dy > 0.0f ? 1.0f : 0.0f;
+  const float sz = dz > 0.0f ? 1.0f : 0.0f;
+  r.gfx = sx + sx - 1.0f;
+  r.gfy = sy + sy - 1.0f;
+  r.gfz = sz + sz - 1.0f;
+  r.isx = ivx * r.gfx;
+  r.isy = ivy * r.gfy;
+  r.isz = ivz * r.gfz;
+  r.bgx = fabsf(ivx) >= kBigIv;
+  r.bgy = fabsf(ivy) >= kBigIv;
+  r.bgz = fabsf(ivz) >= kBigIv;
+  const float slx = fmaxf((0.0f - ox) * ivx, (v - ox) * ivx);
+  const float sly = fmaxf((0.0f - oy) * ivy, (v - oy) * ivy);
+  const float slz = fmaxf((0.0f - oz) * ivz, (v - oz) * ivz);
+  r.t_exit = fminf(fminf(slx, fminf(sly, slz)), 4.0f * v + 16.0f);
+  return r;
+}
+
+// Whether a ray that is active at start takes its first step: at
+// t = EPS_T it lies inside the world and before its slab exit.
+__device__ __forceinline__ bool leg_starts(const Ray& r, float v, int step_cap) {
+  return kEpsT < r.t_exit && 0 < step_cap &&
+         inside_world(r.ox + r.dx * kEpsT, r.oy + r.dy * kEpsT, r.oz + r.dz * kEpsT, v);
+}
+
+// The carry of one march leg: final t (clamped to the slab exit), hit,
+// exit-axis mask, water length of the closed liquid intervals, start of
+// the open one (-1 if none) and step count.
+struct Leg {
+  float t, water, wenter;
+  int stp, axm;
+  bool hit;
+};
+
+// One march leg (wavefront4.py classify + step, for one ray) from
+// t = EPS_T: steps classified from position alone — global window
+// (super-cell) jump, subwindow jump from the window meta, brick skip from
+// the subwindow meta, else a voxel bit test — each advancing by the DDA
+// exit of its cell plus EPS_T, until hit, exit or stp >= step_cap.
+__device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool active,
+                                         int step_cap) {
+  Leg c;
+  c.t = kEpsT;
+  c.water = 0.0f;
+  c.wenter = -1.0f;
+  c.stp = 0;
+  c.axm = 0;
+  c.hit = false;
+  const int gs = w.gs, nw = w.nw, ns = w.ns, nwg = w.nwg;
+  while (active) {
+    const float pxf = r.ox + r.dx * c.t;
+    const float pyf = r.oy + r.dy * c.t;
+    const float pzf = r.oz + r.dz * c.t;
+    if (!(c.t < r.t_exit) || c.stp >= step_cap || !inside_world(pxf, pyf, pzf, w.v)) break;
+    const int vx = static_cast<int>(floorf(pxf));
+    const int vy = static_cast<int>(floorf(pyf));
+    const int vz = static_cast<int>(floorf(pzf));
+    const int wg = (vx >> (6 + gs)) + (vy >> (6 + gs)) * nwg + (vz >> (6 + gs)) * nwg * nwg;
+    const unsigned g = (w.gpair[wg >> 4] >> ((wg & 15) * 2)) & 3u;
+    float cell;
+    bool liquid, hit_now = false;
+    if (g & 1u) {                       // window (super-cell) jump
+      cell = static_cast<float>(64 << gs);
+      liquid = (g & 2u) != 0;
+    } else {
+      const int wi = (vx >> 6) + (vy >> 6) * nw + (vz >> 6) * nw * nw;
+      const int s_loc = ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16;
+      const unsigned sw =
+          (ld(w.wmeta_pad + static_cast<size_t>(wi) * kRow + (s_loc >> 4)) >> ((s_loc & 15) * 2)) &
+          3u;
+      if (sw & 1u) {                    // subwindow jump
+        cell = 16.0f;
+        liquid = (sw & 2u) != 0;
+      } else {
+        const int sid = (vx >> 4) + (vy >> 4) * ns + (vz >> 4) * ns * ns;
+        const int* row = w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
+        const int b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16;
+        const unsigned br = (ld(row + 6 * kRow + (b_loc >> 4)) >> ((b_loc & 15) * 2)) & 3u;
+        if (br & 1u) {                  // brick skip
+          cell = 4.0f;
+          liquid = (br & 2u) != 0;
+        } else {                        // voxel test
+          const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
+          hit_now = ((ld(row + (l >> 5)) >> (l & 31)) & 1u) != 0;
+          liquid = ((ld(row + kRow + (l >> 5)) >> (l & 31)) & 1u) != 0;
+          cell = 1.0f;
+        }
+      }
+    }
+    // water interval: close it on leaving liquid, open it on marching in
+    if (c.wenter >= 0.0f && !liquid) {
+      c.water = c.water + (c.t - c.wenter);
+      c.wenter = -1.0f;
+    }
+    c.stp += 1;
+    if (hit_now) {
+      c.hit = true;
+      break;
+    }
+    if (liquid && c.wenter < 0.0f) c.wenter = c.t;
+    const float icell = 1.0f / cell;
+    const float dtx = axis_exit(pxf, r.gfx, r.isx, r.bgx, cell, icell);
+    const float dty = axis_exit(pyf, r.gfy, r.isy, r.bgy, cell, icell);
+    const float dtz = axis_exit(pzf, r.gfz, r.isz, r.bgz, cell, icell);
+    const float dt = fminf(dtx, fminf(dty, dtz));
+    c.axm = (dtx <= dt ? 1 : 0) | (dty <= dt ? 2 : 0) | (dtz <= dt ? 4 : 0);
+    c.t = c.t + dt + kEpsT;
+  }
+  c.t = fminf(c.t, r.t_exit);
+  return c;
+}
+
+// Hit id at t: 4 palette-index bits + the subwindow palette byte.
+__device__ __forceinline__ int decode_vox(const World& w, const Ray& r, float t) {
+  const int vx = static_cast<int>(floorf(r.ox + r.dx * t));
+  const int vy = static_cast<int>(floorf(r.oy + r.dy * t));
+  const int vz = static_cast<int>(floorf(r.oz + r.dz * t));
+  const int sid = (vx >> 4) + (vy >> 4) * w.ns + (vz >> 4) * w.ns * w.ns;
+  const int* row = w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
+  const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
+  int pidx = 0;
+  for (int b = 0; b < 4; ++b)
+    pidx |= static_cast<int>((ld(row + (2 + b) * kRow + (l >> 5)) >> (l & 31)) & 1u) << b;
+  const unsigned pal = ld(row + 6 * kRow + 4 + (pidx >> 2));
+  return static_cast<int>((pal >> ((pidx & 3) * 8)) & 0xFFu);
+}
+
+// Flags word (wavefront3._FL_*): 1 hit, 2-4 axis mask, 5-16 steps, 17-24
+// hit id, 25-27 direction signs; bit 0 (still active) is 0 once a leg ends.
+__device__ __forceinline__ int encode_flags(bool hit, int axm, int stp, int vox, float dx,
+                                            float dy, float dz) {
+  const int sgn = (dx > 0.0f ? 1 : 0) | (dy > 0.0f ? 2 : 0) | (dz > 0.0f ? 4 : 0);
+  return (hit ? 1 << 1 : 0) | (axm << 2) | (min(stp, 0xFFF) << 5) | (vox << 17) | (sgn << 25);
+}
+
+// Shade one pixel to packed RGBA8 (wavefront4.py shade_store and
+// wavefront3._shade_kernel op order): LUT colour, face tints, step
+// heatmap, shadow factor `shm` (1, or the ambient for a shadowed hit;
+// x * 1.0f == x, so an unshadowed pixel is unchanged), sky and sun disc,
+// water overlay.
+__device__ __forceinline__ unsigned shade_rgba8(const float* s, const float* clut, float dx,
+                                                float dy, float dz, bool hit, int axm, int vox,
+                                                float water, int stp, int show_steps,
+                                                float max_steps, float shm) {
+  float cr = clut[0 * 256 + vox], cg = clut[1 * 256 + vox], cb = clut[2 * 256 + vox];
+  float tint = (axm & 1) ? 0.5f : 1.0f;
+  tint = tint * ((axm & 4) ? 0.7f : 1.0f);
+  tint = tint * (((axm & 2) && dy > 0.0f) ? 0.2f : 1.0f);
+  cr = cr * tint;
+  cg = cg * tint;
+  cb = cb * tint;
+  if (show_steps) {
+    const float f = fminf(fmaxf(static_cast<float>(stp) / max_steps, 0.0f), 1.0f);
+    cr = cg = cb = f;
+  }
+  cr = cr * shm;
+  cg = cg * shm;
+  cb = cb * shm;
+  const float gts = sstep(-0.01f, 100.0f, dy);
+  const float grad_t = powf(sstep(0.0f, 2.5f, dy), 0.35f);
+  const float sun_dot = dx * s[27] + dy * s[28] + dz * s[29];
+  const float sun = ((sun_dot > 0.99f && gts >= 1.0f) ? 1.0f : 0.0f) * s[30];
+  const float sr = 0.03f + ((1.0f + (s[31] - 1.0f) * grad_t) - 0.03f) * gts + sun;
+  const float sg = 0.03f + ((0.3f + (s[32] - 0.3f) * grad_t) - 0.03f) * gts + sun;
+  const float sb = 0.03f + ((0.0f + (s[33] - 0.0f) * grad_t) - 0.03f) * gts + sun;
+  float r = hit ? cr : sr, gc = hit ? cg : sg, b = hit ? cb : sb;
+  if (water != 0.0f) {
+    const float factor = fminf(fmaxf(water * (1.0f / 14.0f), 0.8f), 1.0f);
+    const float keep = 1.0f - factor;
+    r = r * keep + 0.2f * factor;
+    gc = gc * keep + 0.5f * factor;
+    b = b * keep + 1.0f * factor;
+  }
+  return q8(r) | (q8(gc) << 8) | (q8(b) << 16) | 0xFF000000u;
+}
+
+// Stage the scalar row (and, where given, the pair plane and the colour
+// LUT) of one frame in shared memory; blocks have kThreads threads.
+__device__ __forceinline__ void stage(float* s, const float* scal, unsigned* gpair,
+                                      const int* gw2, float* clut, const float* lut) {
+  const int tid = threadIdx.x;
+  if (tid < kScal) s[tid] = scal[tid];
+  if (gpair) {
+    gpair[tid] = static_cast<unsigned>(gw2[tid]);
+    gpair[tid + kRow] = static_cast<unsigned>(gw2[tid + kRow]);
+  }
+  if (clut)
+    for (int i = tid; i < 6 * kRow; i += kThreads) clut[i] = lut[i];
+  __syncthreads();
+}
+
+}  // namespace v4
