@@ -22,17 +22,22 @@ at once):
   7. the shadowed frame (config2's sun, 500-step cap) at 1920x1080 and
      1280x720, bench camera + 48 orbit cameras: fused kernel vs its plain
      version exactly equal; split frame == fused frame, with and without
-     shadows; ``trace_wavefront4_rays`` on the shadow bundle, kernel vs
-     plain version exactly equal; shadowed pixels counted (fail if none);
+     shadows; each launch of the split frame vs its plain version on the
+     same inputs, exactly equal: start marks and state planes of the
+     camera rays and of the shadow bundle, the shade with and without
+     shadows; ``trace_wavefront4_rays`` on the shadow bundle vs the result
+     of the plain planes, every field; shadowed pixels counted (fail if
+     none);
   8. 320x180 with shadows, card vs CPU: 0 hit, voxel and shadow-bit
      mismatches, every pixel within 2/255;
   9. 10 shadowed frames through ``render_packed`` (the fused kernel, 10
-     launches) and 10 split shadowed frames (planes kernel twice, shade
-     once per frame);
+     launches) and 10 split shadowed frames (mark and planes kernels
+     twice each, shade once per frame);
  10. timing with CUDA events, median of 5 windows: the primary frame and
      kernel (1080p), the fused and split shadowed frames, each kernel
      alone and the plain versions (1080p and 720p), with the step counts
-     the bounds need;
+     the bounds need; each kernel both as back-to-back wrapper calls and
+     as the device time of the same calls replayed from a CUDA graph;
  11. phases 4 and 10's primary timing on the 16-chunk world (512³ voxels,
      117 MB of tables), bench camera + 12 orbit cameras.
 
@@ -48,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -72,6 +78,10 @@ STEP_OPS = 37
 # constants 21, shade epilogue 55 counting powf as 20)
 PIXEL_OPS = 100
 ROW_BYTES = 7 * 128 * 4  # one subwindow's sw_cont row
+# FP32 operations of one ray's start mark: its camera ray (24, camera
+# rays only), ray constants (21) and the first step's position (6)
+MARK_OPS_CAMERA = 51
+MARK_OPS_RAYS = 27
 
 
 class PhaseError(Exception):
@@ -279,14 +289,26 @@ def compare_on_cpu(rg_cpu, rg, mats, v, phase, shadows=False):
           "kernel misses the cross-platform bar against the CPU")
 
 
+def words_differ(a, b):
+    """Count of elements whose bits differ (floats compared as words)."""
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
 def compare_shadows(rg, prep, lut, cams, phase):
     """Shadowed frames at one size: fused kernel vs plain version; split
-    == fused with and without shadows; the shadow bundle through
-    trace_wavefront4_rays, kernel planes vs plain planes."""
+    == fused with and without shadows; each launch of the split frame vs
+    its plain version on the same inputs (start marks and planes of the
+    camera rays and of the shadow bundle; the shade with and without
+    shadows); the shadow bundle through trace_wavefront4_rays vs the
+    result of the plain planes. Returns the largest differences of the
+    fused frame, the planes, the shade and the marks."""
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
-    bad = dict(fused=0, split=0, split_noshadow=0, rays=0)
-    worst = dict(fused=0, rays=0.0)
+    bad = dict(fused=0, split=0, split_noshadow=0, marks=0, planes=0,
+               shade=0, rays=0)
+    worst = dict(fused=0, marks=0, planes=0.0, shade=0)
     shadowed = hits = 0
     w, h = cams[0].proj_size
     for cam in cams:
@@ -306,28 +328,46 @@ def compare_shadows(rg, prep, lut, cams, phase):
             + int((a[1] != b[1]).sum())
 
         p = split_parts(args, fkw)
+        sc, dims = p["scal"], p["dims"]
+        tables = (sc, p["gw2"], p["swc"], p["wmp"])
+        for rays, got in (((), p["planes"]), (p["bundle"], p["shadow"])):
+            ref = t4.march_planes4_ref(*tables, *rays, **dims)
+            bad["planes"] += sum(words_differ(x, y) for x, y in zip(got, ref))
+            worst["planes"] = max(worst["planes"], max(
+                float((got[k] - ref[k]).abs().max()) for k in (0, 2, 3)))
+            m = t4.touched4(sc, *rays, **dims).int()
+            rm = t4.touched4_ref(sc, *rays, **dims).int()
+            bad["marks"] += int((m != rm).sum())
+            worst["marks"] = max(worst["marks"], int((m - rm).abs().max()))
+        for shadows in (False, True):
+            skw = dict(show_steps=False, shadows=shadows,
+                       max_steps=fkw["max_steps"])
+            sargs = (p["srow"], p["lut"], *p["planes"], p["sh"])
+            a, b = t4.shade4(*sargs, **skw), t4.shade4_ref(*sargs, **skw)
+            bad["shade"] += int((a != b).sum())
+            worst["shade"] = max(worst["shade"], int(channel_diff(a, b).max()))
+
         ot, dt3, hitm = p["bundle"]
         res = t4.trace_wavefront4_rays(rg, ot, dt3, hitm, width=w, height=h,
                                        step_cap=BENCH_KW["step_cap"])
-        ref = t4.march_planes4_ref(p["scal"], p["gw2"], p["swc"], p["wmp"],
-                                   ot, dt3, hitm, **p["dims"])
-        got = p["shadow"]
-        bad["rays"] += sum(int((x.view(torch.int32) != y.view(torch.int32))
-                               .sum()) for x, y in zip(got, ref))
-        bad["rays"] += int((res.hit != (((ref[1] >> 1) & 1) != 0)).sum())
-        worst["rays"] = max(worst["rays"], max(
-            float((x - y).abs().max()) for x, y in
-            ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3]))))
+        rres = t4._trace_result(*t4.march_planes4_ref(*tables, ot, dt3, hitm,
+                                                      **dims))
+        bad["rays"] += sum(words_differ(x, y) for x, y in zip(res, rres))
         shadowed += int(p["sh"].sum())
         hits += int(((fl >> 1) & 1).sum())
     say(phase, f"{len(cams)} cameras at {w}x{h}, shadows: fused kernel vs "
         f"plain mismatching words {bad['fused']} (max channel diff "
         f"{worst['fused']}/255); split vs fused {bad['split']}, unshadowed "
-        f"{bad['split_noshadow']}; shadow-bundle planes kernel vs plain "
-        f"{bad['rays']}; hit pixels {hits}, shadowed {shadowed}")
+        f"{bad['split_noshadow']}; split launches vs plain (camera rays and "
+        f"shadow bundle): marks {bad['marks']}, planes {bad['planes']} (max "
+        f"abs diff {worst['planes']}), shade with and without shadows "
+        f"{bad['shade']} (max channel diff {worst['shade']}/255); "
+        f"trace_wavefront4_rays vs plain planes {bad['rays']}; hit pixels "
+        f"{hits}, shadowed {shadowed}")
     check(not any(bad.values()), "shadowed frames disagree")
     check(shadowed > 0, "no pixel is shadowed")
-    return worst["fused"] / 255.0, worst["rays"]
+    return dict(fused=worst["fused"] / 255.0, planes=worst["planes"],
+                shade=worst["shade"] / 255.0, marks=float(worst["marks"]))
 
 
 def event_ms(fn, n):
@@ -347,6 +387,29 @@ def median_windows(fn, n):
     fn(1)
     torch.cuda.synchronize()
     return statistics.median(event_ms(fn, n) for _ in range(WINDOWS))
+
+
+def graph_ms(fn, n):
+    """Device milliseconds per call of ``n`` calls captured in one CUDA
+    graph, median of replays: the kernels' time with no host work (the
+    wrapper's checks and allocation, the ctypes call) between launches."""
+    fn(0)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    return statistics.median(event_ms(lambda i: g.replay(), 1) / n
+                             for _ in range(WINDOWS))
+
+
+def time_kernel(out, key, fn):
+    """``out[key]``: ms per wrapper call, back to back (host included);
+    ``out[key + "_dev"]``: the same calls' device ms (:func:`graph_ms`)."""
+    out[key] = median_windows(fn, N_ORBIT)
+    out[key + "_dev"] = graph_ms(fn, N_ORBIT)
 
 
 def plain_ms(fn):
@@ -377,12 +440,10 @@ def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
     out["frame_orbit"] = median_windows(lambda i: frame(orbit[i % n_orbit]),
                                         N_ORBIT)
     sa, skw = args_of(static)
-    out["kernel_static"] = median_windows(
-        lambda i: march_fused4(*sa, **skw), N_ORBIT)
+    time_kernel(out, "kernel_static", lambda i: march_fused4(*sa, **skw))
     oargs = [args_of(c) for c in orbit]
-    out["kernel_orbit"] = median_windows(
-        lambda i: march_fused4(*oargs[i % n_orbit][0],
-                               **oargs[i % n_orbit][1]), N_ORBIT)
+    time_kernel(out, "kernel_orbit", lambda i: march_fused4(
+        *oargs[i % n_orbit][0], **oargs[i % n_orbit][1]))
     out["plain_static"] = plain_ms(lambda: march_fused4_ref(*sa, **skw))
     out["plain_orbit"] = statistics.median(
         event_ms(lambda i, c=c: march_fused4_ref(*oargs[c][0], **oargs[c][1]),
@@ -394,8 +455,9 @@ def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
     for k in ("static", "orbit"):
         say(phase, f"{k}: frame {out['frame_' + k]:.4f} ms "
             f"({rays / out['frame_' + k] / 1e3:.3f} Mrays/s), kernel "
-            f"{out['kernel_' + k]:.4f} ms "
-            f"({rays / out['kernel_' + k] / 1e3:.3f} Mrays/s), plain "
+            f"{out['kernel_' + k]:.4f} ms a call, "
+            f"{out['kernel_' + k + '_dev']:.4f} ms on the device "
+            f"({rays / out['kernel_' + k + '_dev'] / 1e3:.3f} Mrays/s), plain "
             f"{out['plain_' + k]:.2f} ms "
             f"({rays / out['plain_' + k] / 1e3:.3f} Mrays/s)")
     say(phase, f"static steps {out['steps']}, hit subwindow rows "
@@ -439,24 +501,29 @@ def time_shadows(rg, prep, lut, v, size, phase):
             lambda i: frame(orbit[i % N_ORBIT], fused), N_ORBIT)
     sa, skw = frame_inputs(rg, prep, static, lut)
     oargs = [frame_inputs(rg, prep, c, lut) for c in orbit]
-    out["fused_kernel_static"] = median_windows(
-        lambda i: t4.march_fused4(*sa, **skw), N_ORBIT)
-    out["fused_kernel_orbit"] = median_windows(
-        lambda i: t4.march_fused4(*oargs[i % N_ORBIT][0],
-                                  **oargs[i % N_ORBIT][1]), N_ORBIT)
+    time_kernel(out, "fused_kernel_static",
+                lambda i: t4.march_fused4(*sa, **skw))
+    time_kernel(out, "fused_kernel_orbit", lambda i: t4.march_fused4(
+        *oargs[i % N_ORBIT][0], **oargs[i % N_ORBIT][1]))
     p = split_parts(sa, skw)
     sc, g, swc, wmp, dims = p["scal"], p["gw2"], p["swc"], p["wmp"], p["dims"]
     bundle = p["bundle"]
     ts, fl, wa, we = p["planes"]
     skw2 = dict(show_steps=False, shadows=True, max_steps=skw["max_steps"])
-    out["planes_camera"] = median_windows(
-        lambda i: t4.march_planes4(sc, g, swc, wmp, **dims), N_ORBIT)
-    out["planes_rays"] = median_windows(
-        lambda i: t4.march_planes4(sc, g, swc, wmp, *bundle, **dims), N_ORBIT)
-    out["shade"] = median_windows(
-        lambda i: t4.shade4(p["srow"], p["lut"], ts, fl, wa, we, p["sh"],
-                            **skw2), N_ORBIT)
+    time_kernel(out, "touched_camera", lambda i: t4.touched4(sc, **dims))
+    time_kernel(out, "touched_rays",
+                lambda i: t4.touched4(sc, *bundle, **dims))
+    time_kernel(out, "planes_camera",
+                lambda i: t4.march_planes4(sc, g, swc, wmp, **dims))
+    time_kernel(out, "planes_rays",
+                lambda i: t4.march_planes4(sc, g, swc, wmp, *bundle, **dims))
+    time_kernel(out, "shade", lambda i: t4.shade4(
+        p["srow"], p["lut"], ts, fl, wa, we, p["sh"], **skw2))
     out["plain_fused"] = plain_ms(lambda: t4.march_fused4_ref(*sa, **skw))
+    out["plain_touched_camera"] = plain_ms(
+        lambda: t4.touched4_ref(sc, **dims))
+    out["plain_touched_rays"] = plain_ms(
+        lambda: t4.touched4_ref(sc, *bundle, **dims))
     out["plain_planes_camera"] = plain_ms(
         lambda: t4.march_planes4_ref(sc, g, swc, wmp, **dims))
     out["plain_planes_rays"] = plain_ms(
@@ -482,11 +549,16 @@ def time_shadows(rg, prep, lut, v, size, phase):
             t = out[f"{name}_frame_{k}"]
             say(phase, f"{w}x{h} {name} shadowed frame {k}: {t:.4f} ms "
                 f"({rays2 / t / 1e3:.3f} Mrays/s at 2 rays/pixel)")
-    for k in ("fused_kernel_static", "fused_kernel_orbit", "planes_camera",
-              "planes_rays", "shade"):
-        say(phase, f"{w}x{h} {k}: {out[k]:.4f} ms")
+    for k in ("fused_kernel_static", "fused_kernel_orbit", "touched_camera",
+              "touched_rays", "planes_camera", "planes_rays", "shade"):
+        say(phase, f"{w}x{h} {k}: {out[k]:.4f} ms a call, "
+            f"{out[k + '_dev']:.4f} ms on the device")
+    say(phase, f"{w}x{h} (planes_* is one march_planes4 call: the marks and "
+        f"the march)")
     say(phase, f"{w}x{h} plain static: fused {out['plain_fused']:.2f} ms, "
-        f"planes camera {out['plain_planes_camera']:.2f} ms, planes rays "
+        f"touched camera {out['plain_touched_camera']:.2f} ms, touched rays "
+        f"{out['plain_touched_rays']:.2f} ms, planes camera "
+        f"{out['plain_planes_camera']:.2f} ms, planes rays "
         f"{out['plain_planes_rays']:.2f} ms, shade "
         f"{out['plain_shade']:.2f} ms")
     say(phase, f"{w}x{h} static steps: primary {out['steps_primary']}, "
@@ -513,6 +585,9 @@ def shadow_bounds(sh):
             sh["rows_both"] * ROW_BYTES + 8 * px,
             (sh["steps_primary"] + sh["steps_shadow"]) * STEP_OPS
             + px * PIXEL_OPS),
+        # start marks: one byte a 128-ray tile out; bundles in for rays
+        "touched_camera": bound(px / 128, px * MARK_OPS_CAMERA),
+        "touched_rays": bound(25 * px + px / 128, px * MARK_OPS_RAYS),
         # camera planes: 4 planes out; camera ray + ray constants a pixel
         "planes_camera": bound(sh["rows_primary"] * ROW_BYTES + 16 * px,
                                sh["steps_primary"] * STEP_OPS + px * 45),
@@ -532,7 +607,7 @@ def count_main_path(rg, mats, v, phase):
         STEP_CAP, STEPS_PER_ROUND, RenderSettings, WavefrontRenderer)
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
-    counters = (t4.march_fused4, t4.march_planes4, t4.shade4)
+    counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4)
     _, orbit = bench_cams(v, WIDTH, HEIGHT)
     counts = {}
     renderer = WavefrontRenderer(mats)
@@ -551,10 +626,10 @@ def count_main_path(rg, mats, v, phase):
         rimg, _ = t4.march_fused4_ref(*args, **kw)
         alpha_ok = bool(((img >> 24) & 255 == 255).all())
         say(phase, f"render_packed x10 shadows={shadows}: launches "
-            f"fused/planes/shade {counts[shadows]}, frame "
+            f"fused/planes/touched/shade {counts[shadows]}, frame "
             f"{tuple(img.shape)} {img.dtype}, alpha ok {alpha_ok}, last "
             f"frame == plain version: {bool((img == rimg).all())}")
-        check(counts[shadows] == [10, 0, 0],
+        check(counts[shadows] == [10, 0, 0, 0],
               "render_packed did not launch the fused kernel once per frame")
         check(alpha_ok and bool((img == rimg).all()),
               "render_packed frame disagrees with the plain version")
@@ -566,10 +641,11 @@ def count_main_path(rg, mats, v, phase):
                          sun_pos=sun_of(cam), **{**BENCH_KW, "fused": False})
     torch.cuda.synchronize()
     counts["split"] = [c.launches for c in counters]
-    say(phase, f"split shadowed frames x10: launches fused/planes/shade "
-        f"{counts['split']}")
-    check(counts["split"] == [0, 20, 10],
-          "the split frame did not launch planes twice and shade once")
+    say(phase, f"split shadowed frames x10: launches "
+        f"fused/planes/touched/shade {counts['split']}")
+    check(counts["split"] == [0, 20, 20, 10],
+          "the split frame did not launch marks and planes twice each and "
+          "shade once")
     return counts
 
 
@@ -591,7 +667,8 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build_all()
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        list(pool.map(_build.build, _build.KERNELS))
     say(2, f"built {', '.join(_build.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for name in _build.KERNELS:
@@ -638,43 +715,54 @@ def main():
     px = WIDTH * HEIGHT
     b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,
                       t8["steps"] * STEP_OPS + px * PIXEL_OPS)
-    say(10, f"{WIDTH}x{HEIGHT} march_fused4 (primary): {t8['kernel_static']:.4f}"
-        f" ms, least {b_primary[0]:.5f} ms, bound by {b_primary[1]}")
+    say(10, f"{WIDTH}x{HEIGHT} march_fused4 (primary): "
+        f"{t8['kernel_static_dev']:.4f} ms on the device, least "
+        f"{b_primary[0]:.5f} ms, bound by {b_primary[1]}")
     for size in SIZES:
         b = shadow_bounds(ts[size])
         for k, (bms, by) in b.items():
-            say(10, f"{size[0]}x{size[1]} {k}: {ts[size][k]:.4f} ms, least "
+            say(10, f"{size[0]}x{size[1]} {k}: {ts[size][k + '_dev']:.4f} ms "
+                f"on the device, least "
                 f"{bms:.5f} ms, bound by {by}")
     sh = ts[(WIDTH, HEIGHT)]
     b = shadow_bounds(sh)
     b_fused, b_cam, b_rays, b_shade = (
         b["fused_kernel_static"], b["planes_camera"], b["planes_rays"],
         b["shade"])
+    b_tcam, b_trays = b["touched_camera"], b["touched_rays"]
     src = "voxelraytracing_tpu_torch/csrc/"
     kernels = [
         dict(name="march_fused4", source=src + "march4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:185",
              launches=counts[False][0], max_abs_err=err,
-             ms=t8["kernel_static"], plain_ms=t8["plain_static"],
+             ms=t8["kernel_static_dev"], plain_ms=t8["plain_static"],
              bound=b_primary),
         dict(name="march_fused4_shadow", source=src + "march4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:1280",
              launches=counts[True][0],
-             max_abs_err=max(e[0] for e in errs.values()),
-             ms=sh["fused_kernel_static"], plain_ms=sh["plain_fused"],
+             max_abs_err=max(e["fused"] for e in errs.values()),
+             ms=sh["fused_kernel_static_dev"], plain_ms=sh["plain_fused"],
              bound=b_fused),
         dict(name="march_planes4", source=src + "planes4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:1399",
              launches=counts["split"][1],
-             max_abs_err=max(e[1] for e in errs.values()),
-             ms=sh["planes_camera"] + sh["planes_rays"],
+             max_abs_err=max(e["planes"] for e in errs.values()),
+             ms=sh["planes_camera_dev"] + sh["planes_rays_dev"],
              plain_ms=sh["plain_planes_camera"] + sh["plain_planes_rays"],
              bound=(b_cam[0] + b_rays[0],
                     max(b_cam, b_rays)[1])),
+        dict(name="touched4", source=src + "planes4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront4.py:892",
+             launches=counts["split"][2],
+             max_abs_err=max(e["marks"] for e in errs.values()),
+             ms=sh["touched_camera_dev"] + sh["touched_rays_dev"],
+             plain_ms=sh["plain_touched_camera"] + sh["plain_touched_rays"],
+             bound=(b_tcam[0] + b_trays[0], max(b_tcam, b_trays)[1])),
         dict(name="shade4", source=src + "shade4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront3.py:1909",
-             launches=counts["split"][2], max_abs_err=0.0,
-             ms=sh["shade"], plain_ms=sh["plain_shade"], bound=b_shade),
+             launches=counts["split"][3],
+             max_abs_err=max(e["shade"] for e in errs.values()),
+             ms=sh["shade_dev"], plain_ms=sh["plain_shade"], bound=b_shade),
     ]
     line = []
     for k in kernels:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused frame (with and without the shadow leg), the state-plane
-march (camera rays and per-ray bundles) and the split shade, each equal
-word for word, and each wrapper refusing a wrong dtype or shape.
+march and its start marks (camera rays and per-ray bundles) and the split
+shade, each equal word for word, and each wrapper refusing a wrong dtype
+or shape.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -58,9 +59,9 @@ def _both(rg, prep, mats, cam, **kw):
     return got, t4.march_fused4_ref(*args, **fkw)
 
 
-def _planes(rg, prep, mats, cam, bundle=False):
-    """Kernel and plain state planes of a frame's camera rays, or with
-    ``bundle`` of its shadow rays; plus the frame's inputs."""
+def _rays(rg, prep, mats, cam, bundle=False):
+    """A frame's inputs and the rays of its state-plane march: none for
+    the camera rays, with ``bundle`` the frame's shadow rays."""
     args, kw = t4.frame_args(rg, cam, mats.color, prepared=prep,
                              step_cap=500, sun_pos=SUN)
     scal, gw2, lut, swc, wmp = args
@@ -69,10 +70,20 @@ def _planes(rg, prep, mats, cam, bundle=False):
     if bundle:
         ts, fl, _, _ = t4.march_planes4_ref(scal, gw2, swc, wmp, **dims)
         rays = t4._shadow_prep4(ts, fl, scal.cpu().numpy())
-    before = t4.march_planes4.launches
+    return args, kw, dims, rays
+
+
+def _planes(rg, prep, mats, cam, bundle=False):
+    """Kernel and plain state planes of a frame's camera rays, or with
+    ``bundle`` of its shadow rays; plus the frame's inputs. One call of
+    the wrapper launches the mark kernel and the march kernel once each."""
+    args, kw, dims, rays = _rays(rg, prep, mats, cam, bundle)
+    scal, gw2, lut, swc, wmp = args
+    before = t4.march_planes4.launches, t4.touched4.launches
     got = t4.march_planes4(scal, gw2, swc, wmp, *rays, **dims)
     torch.cuda.synchronize()
-    assert t4.march_planes4.launches == before + 1
+    assert (t4.march_planes4.launches, t4.touched4.launches) == \
+        (before[0] + 1, before[1] + 1)
     return got, t4.march_planes4_ref(scal, gw2, swc, wmp, *rays, **dims), \
         (args, kw)
 
@@ -127,6 +138,22 @@ def test_planes_kernel_equals_plain_version(card_world, i, bundle):
 
 
 @pytest.mark.parametrize("i", range(len(CAMS)))
+@pytest.mark.parametrize("bundle", [False, True])
+def test_touched_kernel_equals_plain_version(card_world, i, bundle):
+    """Start marks of camera rays and of the frame's shadow rays at
+    200x120, a frame whose last tile column is partial."""
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+    args, _, dims, rays = _rays(rg, prep, mats, cam, bundle)
+    before = t4.touched4.launches
+    marks = t4.touched4(args[0], *rays, **dims)
+    torch.cuda.synchronize()
+    assert t4.touched4.launches == before + 1
+    assert marks.shape == (15, 13) and marks.dtype == torch.uint8
+    assert torch.equal(marks, t4.touched4_ref(args[0], *rays, **dims))
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
 @pytest.mark.parametrize("shadows", [False, True])
 def test_shade_kernel_equals_plain_version(card_world, i, shadows):
     rg, prep, mats = card_world
@@ -167,6 +194,8 @@ def test_new_kernels_reject_bad_inputs(card_world):
     with pytest.raises(ValueError, match="origins"):
         t4.march_planes4(scal, gw2, swc, wmp, o[:16], o, act, height=32,
                          width=64)
+    with pytest.raises(ValueError, match="dirs"):
+        t4.touched4(scal, o, o.double(), act, height=32, width=64)
     with pytest.raises(ValueError, match="fl"):
         t4.shade4(scal, lut, ts, fl.float(), wa, we, None)
     with pytest.raises(ValueError, match="sh"):

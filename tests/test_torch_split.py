@@ -197,6 +197,26 @@ def test_trace_rays_untouched_superblock_matches_jax(world):
     assert (t[:, -16:] < 0).all() and res.hit.numpy()[:, 128:].any()
 
 
+def test_touched_marks_match_jax_starts(world):
+    """The start marks (``touched4`` on CPU tensors: its plain version) of
+    the 256x64 bundle mark exactly the 16x8 tiles in which a ray of the
+    JAX trace took a step: none in the left superblock, whose start state
+    JAX passes through, none in the last 16 columns, some in between."""
+    trg, _, gold = world
+    o, d, active = gold["half"]
+    eye = np.eye(4, dtype=np.float32)
+    scal = torch.from_numpy(t4._scal_row(trg, np.zeros(3, np.float32), eye,
+                                         eye, BIG[0], BIG[1], None))
+    marks = t4.touched4(scal, torch.from_numpy(o), torch.from_numpy(d),
+                        torch.from_numpy(active), height=BIG[1], width=BIG[0])
+    assert marks.dtype == torch.uint8 and marks.shape == (8, 16)
+    stepped = np.asarray(gold["half_rays"].steps) > 0
+    tiles = stepped.reshape(8, 8, 16, 16).any(axis=(1, 3))
+    np.testing.assert_array_equal(marks.numpy() != 0, tiles)
+    assert not tiles[:, :8].any() and not tiles[:, -1].any()
+    assert tiles[:, 8:].any()
+
+
 def test_trace_rays_with_camera_rays_equal_trace(world):
     """trace_wavefront4_rays fed the camera's own rays == trace_wavefront4,
     as in tests/test_wavefront4.py:80-93: hits and voxel ids exact, ``t``

@@ -6,7 +6,7 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
 and loaded with ``ctypes``. Nothing is compiled when the package is
 imported, so the CPU tests import every module on machines without
-``nvcc``. :func:`build_all` runs one ``nvcc`` per source, all at once.
+``nvcc``.
 
 The flags keep IEEE arithmetic: ``--fmad=false`` stops ``a*b+c`` from
 contracting into an FMA, so every multiply and add rounds on its own as
@@ -19,7 +19,6 @@ import os
 import shutil
 import subprocess
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -37,7 +36,8 @@ _SIGNATURES = {
         "march_fused4_launch": (_I, [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
     },
     "planes4": {
-        "march_planes4_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
+        "touched4_launch": (_I, [_P] * 5 + [_I] * 2 + [_P]),
+        "march_planes4_launch": (_I, [_P] * 12 + [_I] * 5 + [_P]),
     },
     "shade4": {
         "shade4_launch": (_I, [_P] * 8 + [_I] * 3 + [_F, _P]),
@@ -89,13 +89,6 @@ def build(name):
     out.with_suffix(".log").write_text(r.stdout + r.stderr)
     os.replace(tmp, out)
     return out
-
-
-def build_all(names=KERNELS):
-    """Build every named kernel, one ``nvcc`` each, all started together;
-    returns their library paths."""
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return list(pool.map(build, names))
 
 
 def build_log(name):

@@ -14,20 +14,24 @@
 //
 // The TPU kernel works on 64-tile blocks (128x64-pixel superblocks) and
 // passes the input state planes through unchanged when no ray of the
-// block is active at start; otherwise every ray's t is clamped to its
-// slab exit and its flags carry the direction signs. Those raw planes are
-// the function's output (the split shade reads them; for a camera outside
-// the world the untouched state is all zero), so this kernel keeps that
-// rule: a first pass marks each superblock that holds an active ray, the
-// march pass reads the mark. Both passes run on the wrapper's stream.
+// block is active at start (wavefront4.py:883-892, :995); otherwise every
+// ray's t is clamped to its slab exit and its flags carry the direction
+// signs. Those raw planes are the function's output (the split shade
+// reads them; for a camera outside the world the untouched state is all
+// zero), so this file keeps that rule in two kernels, each launched by
+// its own C entry on the caller's stream: touched4_kernel marks each 16x8
+// tile that holds a ray active at start (one byte a tile, every tile
+// written, so no clearing pass), and march_planes4_kernel reads the 64
+// marks of its superblock before it marches.
 //
 // What bounds it: as march4.cu, the dependent table loads of every step
 // and the divergence of a warp's rays (latency, not bandwidth); the
 // per-ray bundles and the four f32/i32 planes add 40 bytes a ray of
-// streaming traffic, small beside the march. Design: 16x8-pixel tiles per
-// 128-thread block, scalar row and pair plane in shared memory, tables
-// through the read-only path, planes in image order so a warp's loads and
-// stores are two contiguous 64-byte runs.
+// streaming traffic, small beside the march. The mark pass reads the
+// bundle once more (25 bytes a ray) and does no march. Design: 16x8-pixel
+// tiles per 128-thread block, scalar row and pair plane in shared memory,
+// tables through the read-only path, planes in image order so a warp's
+// loads and stores are two contiguous 64-byte runs.
 
 #include "march4_common.cuh"
 
@@ -35,8 +39,8 @@ namespace {
 
 using namespace v4;
 
-constexpr int kSbW = 128;             // superblock (one TPU block of 64 tiles), pixels
-constexpr int kSbH = 64;
+constexpr int kSbTx = 8;              // superblock (one TPU block of 64 tiles), tiles
+constexpr int kSbTy = 8;
 constexpr int kFlZero = -0x30000000;  // flags read from an all-zero state plane
 
 // The ray of pixel (px, py) and whether it is active at start: camera
@@ -71,12 +75,13 @@ __device__ __forceinline__ Ray pixel_ray(const float* s, const float* origins, c
   return make_ray(ox, oy, oz, dx, dy, dz, v);
 }
 
-// Pass 1: touched[sb] = 1 for each superblock with a ray active at start.
+// Pass 1: marks[tile] = 1 where a ray of the tile is active at start,
+// else 0; one byte for every tile of the launch grid.
 template <bool kPerRay>
 __global__ void __launch_bounds__(kThreads)
-touched_kernel(const float* __restrict__ scal, const float* __restrict__ origins,
-               const float* __restrict__ dirs, const unsigned char* __restrict__ active,
-               int* __restrict__ touched, int height, int width, int nsx) {
+touched4_kernel(const float* __restrict__ scal, const float* __restrict__ origins,
+                const float* __restrict__ dirs, const unsigned char* __restrict__ active,
+                unsigned char* __restrict__ marks, int height, int width) {
   __shared__ float s[kScal];
   stage(s, scal, nullptr, nullptr, nullptr, nullptr);
   const int px = blockIdx.x * kTileW + (threadIdx.x % kTileW);
@@ -87,25 +92,32 @@ touched_kernel(const float* __restrict__ scal, const float* __restrict__ origins
     const Ray r = pixel_ray<kPerRay>(s, origins, dirs, active, px, py, width, fl0);
     act0 = fl0 && leg_starts(r, s[3], step_cap_of(s));
   }
-  // a block is one tile, and a tile lies in one superblock
-  if (__syncthreads_or(act0) && threadIdx.x == 0)
-    atomicOr(touched + (blockIdx.y * kTileH / kSbH) * nsx + blockIdx.x * kTileW / kSbW, 1);
+  const bool any = __syncthreads_or(act0);
+  if (threadIdx.x == 0) marks[blockIdx.y * gridDim.x + blockIdx.x] = any ? 1 : 0;
 }
 
-// Pass 2: march every ray of a touched superblock; pass the start state
-// of an untouched one through.
+// Pass 2: march every ray of a superblock with a marked tile; pass the
+// start state of any other superblock through.
 template <bool kPerRay>
 __global__ void __launch_bounds__(kThreads)
 march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
                      const int* __restrict__ sw_cont, const int* __restrict__ wmeta_pad,
                      const float* __restrict__ origins, const float* __restrict__ dirs,
                      const unsigned char* __restrict__ active,
-                     const int* __restrict__ touched, float* __restrict__ ts,
+                     const unsigned char* __restrict__ marks, float* __restrict__ ts,
                      int* __restrict__ fl, float* __restrict__ wa, float* __restrict__ we,
-                     int height, int width, int nw, int ns, int gs, int nsx) {
+                     int height, int width, int nw, int ns, int gs) {
   __shared__ float s[kScal];
   __shared__ unsigned gpair[2 * kRow];
   stage(s, scal, gpair, gw2, nullptr, nullptr);
+  // the first 64 threads read the marks of the superblock's 8x8 tiles
+  bool marked = false;
+  if (threadIdx.x < kSbTx * kSbTy) {
+    const unsigned tx = blockIdx.x / kSbTx * kSbTx + threadIdx.x % kSbTx;
+    const unsigned ty = blockIdx.y / kSbTy * kSbTy + threadIdx.x / kSbTx;
+    marked = tx < gridDim.x && ty < gridDim.y && marks[ty * gridDim.x + tx] != 0;
+  }
+  const bool on = __syncthreads_or(marked);
   const int px = blockIdx.x * kTileW + (threadIdx.x % kTileW);
   const int py = blockIdx.y * kTileH + (threadIdx.x / kTileW);
   if (px >= width || py >= height) return;
@@ -113,7 +125,7 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
 
   bool fl0;
   const Ray r = pixel_ray<kPerRay>(s, origins, dirs, active, px, py, width, fl0);
-  if (!touched[(py / kSbH) * nsx + px / kSbW]) {
+  if (!on) {
     // the TPU block's input state: zero planes for camera rays, the
     // fresh start (EPS_T, active bit, no water) for bundles
     ts[o] = kPerRay ? kEpsT : 0.0f;
@@ -131,39 +143,46 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
   we[o] = c.wenter;
 }
 
-template <bool kPerRay>
-int launch(const float* scal, const int* gw2, const int* sw_cont, const int* wmeta_pad,
-           const float* origins, const float* dirs, const unsigned char* active, int* touched,
-           float* ts, int* fl, float* wa, float* we, int height, int width, int nw, int ns,
-           int gs, int nsx, int nsy, cudaStream_t stream) {
-  cudaError_t e = cudaMemsetAsync(touched, 0, sizeof(int) * nsx * nsy, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
-  touched_kernel<kPerRay><<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, touched,
-                                                         height, width, nsx);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  march_planes4_kernel<kPerRay><<<grid, kThreads, 0, stream>>>(
-      scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, touched, ts, fl, wa, we, height,
-      width, nw, ns, gs, nsx);
-  return static_cast<int>(cudaGetLastError());
+dim3 tile_grid(int height, int width) {
+  return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
 }
 
 }  // namespace
 
-// March one frame's rays on `stream`: camera rays when `origins` is null,
-// else the bundle origins/dirs f32[height,width,3] with `active`
-// u8[height,width]. `touched` is scratch of nsx*nsy ints. Returns the
-// first CUDA error (0 = cudaSuccess); the caller raises on anything else.
+// Mark the tiles of one frame's rays on `stream`: camera rays when
+// `origins` is null, else the bundle origins/dirs f32[height,width,3] with
+// `active` u8[height,width]. `marks` is u8[ceil(height/8), ceil(width/16)].
+// Returns the launch's CUDA error (0 = cudaSuccess); the caller raises on
+// anything else.
+extern "C" int touched4_launch(const float* scal, const float* origins, const float* dirs,
+                               const unsigned char* active, unsigned char* marks, int height,
+                               int width, cudaStream_t stream) {
+  const dim3 grid = tile_grid(height, width);
+  if (origins)
+    touched4_kernel<true><<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, marks,
+                                                         height, width);
+  else
+    touched4_kernel<false><<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, marks,
+                                                          height, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// March one frame's rays on `stream`, with the rays as in touched4_launch
+// and the marks it wrote. Returns the launch's CUDA error.
 extern "C" int march_planes4_launch(const float* scal, const int* gw2, const int* sw_cont,
                                     const int* wmeta_pad, const float* origins,
                                     const float* dirs, const unsigned char* active,
-                                    int* touched, float* ts, int* fl, float* wa, float* we,
-                                    int height, int width, int nw, int ns, int gs, int nsx,
-                                    int nsy, cudaStream_t stream) {
+                                    const unsigned char* marks, float* ts, int* fl, float* wa,
+                                    float* we, int height, int width, int nw, int ns, int gs,
+                                    cudaStream_t stream) {
+  const dim3 grid = tile_grid(height, width);
   if (origins)
-    return launch<true>(scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, touched, ts, fl,
-                        wa, we, height, width, nw, ns, gs, nsx, nsy, stream);
-  return launch<false>(scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, touched, ts, fl, wa,
-                       we, height, width, nw, ns, gs, nsx, nsy, stream);
+    march_planes4_kernel<true><<<grid, kThreads, 0, stream>>>(
+        scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, marks, ts, fl, wa, we, height,
+        width, nw, ns, gs);
+  else
+    march_planes4_kernel<false><<<grid, kThreads, 0, stream>>>(
+        scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, marks, ts, fl, wa, we, height,
+        width, nw, ns, gs);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -12,14 +12,16 @@ schedule and changes no pixel (tests/test_wavefront4.py pins it), so the
 port keeps only the per-ray semantics: each ray marches on its own until
 it hits, leaves the world or the slab, or reaches the step cap.
 
-Three kernels, each a wrapper that launches the hand-written CUDA kernel
+Four kernels, each a wrapper that launches the hand-written CUDA kernel
 on CUDA tensors and runs the plain PyTorch version on CPU tensors:
 
   * :func:`march_fused4` (``csrc/march4.cu``): march + shadow leg + shade;
     plain version :func:`march_fused4_ref`.
+  * :func:`touched4` (``csrc/planes4.cu``): mark the tiles that hold a
+    ray active at start; plain :func:`touched4_ref`.
   * :func:`march_planes4` (``csrc/planes4.cu``): march camera rays or
-    per-ray bundles to the raw state planes; plain
-    :func:`march_planes4_ref`.
+    per-ray bundles to the raw state planes (after :func:`touched4`);
+    plain :func:`march_planes4_ref`.
   * :func:`shade4` (``csrc/shade4.cu``): the split shade of those planes;
     plain :func:`shade4_ref`.
 
@@ -182,9 +184,13 @@ def _world_of(scal, gw2, sw_cont, wmeta_pad):
     s = scal.detach().cpu().numpy().astype(np.float32)
     sf = [float(x) for x in s]
     nw, ns, gs = _world_dims(sw_cont, wmeta_pad)
-    step_cap = int(s[23]) if s[23] > 0.5 else 1_000_000_000
-    return _World(sf[3], step_cap, nw, ns, gs, gw2.reshape(-1),
+    return _World(sf[3], _step_cap(sf), nw, ns, gs, gw2.reshape(-1),
                   wmeta_pad.reshape(-1), sw_cont.reshape(-1)), sf
+
+
+def _step_cap(sf):
+    """The step cap of a scalar row (``scal[23]``; none when it is 0)."""
+    return int(sf[23]) if sf[23] > 0.5 else 1_000_000_000
 
 
 def _pixels(height, width, device):
@@ -246,14 +252,13 @@ def _ray_consts(v, ox, oy, oz, dx, dy, dz):
     return sgf, ivs, big, t_exit
 
 
-def _leg_starts(wd, ox, oy, oz, dx, dy, dz, t_exit):
+def _leg_starts(v, step_cap, ox, oy, oz, dx, dy, dz, t_exit):
     """Whether a ray that is active at start takes its first step: at
     ``t = EPS_T`` it lies inside the world and before its slab exit."""
-    v = wd.v
     p = [o + d * EPS_T for o, d in ((ox, dx), (oy, dy), (oz, dz))]
     inw = (p[0] >= 0.0) & (p[1] >= 0.0) & (p[2] >= 0.0) \
         & (p[0] < v) & (p[1] < v) & (p[2] < v)
-    return inw & (EPS_T < t_exit) & bool(0 < wd.step_cap)
+    return inw & (EPS_T < t_exit) & bool(0 < step_cap)
 
 
 def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
@@ -539,27 +544,14 @@ def march_fused4_ref(scal, gw2, lut, sw_cont, wmeta_pad, *, height, width,
     return packed.reshape(height, width), flags.reshape(height, width)
 
 
-def march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins=None,
-                      dirs=None, active=None, *, height, width):
-    """Plain PyTorch version of the state-plane march.
+def _start_rays(sf, pxi, pyi, origins, dirs, active):
+    """The rays of a state-plane march and which are active at start.
 
     Camera rays when ``origins`` is None (active: a whole tile inside the
     frame and the camera strictly inside the world); else per-ray bundles
-    ``origins``/``dirs`` f32[height,width,3] and ``active``
-    bool[height,width] (active: the flag, a valid tile and the origin
-    strictly inside the world), as ``_trace_frame4`` inits them
-    (wavefront4.py:1692-1703). Returns the raw planes ``(ts, fl, wa,
-    we)``, each [height, width]: ``t`` clamped to the slab exit, the flags
-    word, the water length of closed intervals, the open interval's start
-    (or -1).
-
-    As the JAX kernel does per 64-tile block, a 128x64-pixel superblock
-    in which no ray takes a first step passes its start state through:
-    zero planes for camera rays (flags ``_FL_ZERO``), ``(EPS_T, active
-    bit, 0, -1)`` for bundles.
-    """
-    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad)
-    pxi, pyi = _pixels(height, width, sw_cont.device)
+    ``origins``/``dirs`` f32[H,W,3] and ``active`` bool[H,W] (active: the
+    flag, a valid tile and the origin strictly inside the world), as
+    ``_trace_frame4`` inits them (wavefront4.py:1692-1703)."""
     valid = _tile_ok(sf, pxi, pyi)
     if origins is None:
         rays = _camera_rays(sf, pxi, pyi)
@@ -568,18 +560,67 @@ def march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins=None,
         o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
         rays = (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
         fl0 = active.reshape(-1) & valid
-    fl0 = fl0 & _strictly_inside(wd.v, *rays[:3])
+    return rays, fl0 & _strictly_inside(sf[3], *rays[:3])
+
+
+def _tile_marks(act0, height, width):
+    """u8[ceil(H/8), ceil(W/16)]: 1 where a ray of the 16x8 tile takes a
+    first step."""
+    ty, tx = -(-height // TILE_H), -(-width // TILE_W)
+    a = act0.reshape(height, width).to(torch.uint8)
+    a = torch.nn.functional.pad(a, (0, tx * TILE_W - width,
+                                    0, ty * TILE_H - height))
+    return a.reshape(ty, TILE_H, tx, TILE_W).amax(dim=(1, 3))
+
+
+def touched4_ref(scal, origins=None, dirs=None, active=None, *, height,
+                 width):
+    """Plain PyTorch version of the start marks of a state-plane march:
+    u8[ceil(height/8), ceil(width/16)], 1 for each 16x8 tile holding a ray
+    that takes a first step (JAX: the per-block ``any_active`` of
+    ``_march_kernel4``, wavefront4.py:883-892). Rays as in
+    :func:`march_planes4_ref`."""
+    sf = [float(x) for x in scal.detach().cpu().numpy().astype(np.float32)]
+    dev = scal.device if origins is None else origins.device
+    rays, fl0 = _start_rays(sf, *_pixels(height, width, dev), origins, dirs,
+                            active)
+    t_exit = _ray_consts(sf[3], *rays)[3]
+    return _tile_marks(fl0 & _leg_starts(sf[3], _step_cap(sf), *rays, t_exit),
+                       height, width)
+
+
+def march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins=None,
+                      dirs=None, active=None, *, height, width):
+    """Plain PyTorch version of the state-plane march.
+
+    Camera rays when ``origins`` is None; else per-ray bundles
+    ``origins``/``dirs`` f32[height,width,3] and ``active``
+    bool[height,width] (see :func:`_start_rays` for which rays start).
+    Returns the raw planes ``(ts, fl, wa, we)``, each [height, width]:
+    ``t`` clamped to the slab exit, the flags word, the water length of
+    closed intervals, the open interval's start (or -1).
+
+    As the JAX kernel does per 64-tile block, a 128x64-pixel superblock
+    none of whose tiles :func:`touched4_ref` marks passes its start state
+    through: zero planes for camera rays (flags ``_FL_ZERO``), ``(EPS_T,
+    active bit, 0, -1)`` for bundles.
+    """
+    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad)
+    pxi, pyi = _pixels(height, width, sw_cont.device)
+    rays, fl0 = _start_rays(sf, pxi, pyi, origins, dirs, active)
     t_exit, t, hit, axm, wa, we, stp = _leg_ref(wd, *rays, fl0)
     vox = _decode_vox_ref(wd, *rays, t, hit)
     fl = _encode_flags(hit, axm, stp, vox, *rays[3:])
 
-    # superblocks (JAX blocks) holding a ray that takes a first step
+    # superblocks (JAX blocks) with a marked tile
+    marks = _tile_marks(fl0 & _leg_starts(wd.v, wd.step_cap, *rays, t_exit),
+                        height, width)
     nsx, nsy = _sb_grid(height, width)
-    sb = (pyi // (SB_H * TILE_H)) * nsx + pxi // (SB_W * TILE_W)
-    act0 = fl0 & _leg_starts(wd, *rays, t_exit)
-    mark = torch.zeros(nsx * nsy, dtype=torch.bool, device=sb.device)
-    mark[sb[act0].long()] = True
-    on = mark[sb.long()]
+    marks = torch.nn.functional.pad(marks, (0, nsx * SB_W - marks.shape[1],
+                                            0, nsy * SB_H - marks.shape[0]))
+    sb_on = marks.reshape(nsy, SB_H, nsx, SB_W).amax(dim=(1, 3)) != 0
+    on = sb_on[(pyi // (SB_H * TILE_H)).long(),
+               (pxi // (SB_W * TILE_W)).long()]
     if origins is None:
         planes = (torch.where(on, t, 0.0), torch.where(on, fl, _FL_ZERO),
                   torch.where(on, wa, 0.0), torch.where(on, we, 0.0))
@@ -690,38 +731,69 @@ def march_fused4(scal, gw2, lut, sw_cont, wmeta_pad, *, height, width,
 march_fused4.launches = 0  # kernel launches since the last reset
 
 
+def _bundle_checks(origins, dirs, active, height, width):
+    if origins is None:
+        return []
+    return [("origins", origins, torch.float32, (height, width, 3)),
+            ("dirs", dirs, torch.float32, (height, width, 3)),
+            ("active", active, torch.bool, (height, width))]
+
+
+def _bundle_ptrs(origins, dirs, active):
+    return [None if x is None else x.data_ptr()
+            for x in (origins, dirs, active)]
+
+
+def touched4(scal, origins=None, dirs=None, active=None, *, height, width):
+    """Start marks of a state-plane march -> u8[ceil(height/8),
+    ceil(width/16)].
+
+    On CUDA tensors: one launch of ``touched4_kernel`` in
+    ``csrc/planes4.cu``; on CPU tensors: the plain version
+    :func:`touched4_ref`. Any other device raises. Same arguments as
+    :func:`touched4_ref`."""
+    dev = _device_of(scal, "touched4")
+    if dev.type == "cpu":
+        return touched4_ref(scal, origins, dirs, active, height=height,
+                            width=width)
+    _check(dev, [("scal", scal, torch.float32, (N_SCAL,))]
+           + _bundle_checks(origins, dirs, active, height, width))
+    marks = torch.empty((-(-height // TILE_H), -(-width // TILE_W)),
+                        dtype=torch.uint8, device=dev)
+    _run(dev, "touched4", _build.load("planes4").touched4_launch,
+         scal.data_ptr(), *_bundle_ptrs(origins, dirs, active),
+         marks.data_ptr(), height, width)
+    touched4.launches += 1
+    return marks
+
+
+touched4.launches = 0  # kernel launches since the last reset
+
+
 def march_planes4(scal, gw2, sw_cont, wmeta_pad, origins=None, dirs=None,
                   active=None, *, height, width):
     """State-plane v4 march -> ``(ts, fl, wa, we)``, each [height, width].
 
-    On CUDA tensors: one call of ``csrc/planes4.cu`` (a pass that marks
-    the superblocks holding an active ray, then the march; both on the
-    current stream); on CPU tensors: the plain version
-    :func:`march_planes4_ref`. Any other device raises. Same arguments as
-    :func:`march_planes4_ref`."""
+    On CUDA tensors: :func:`touched4`, then one launch of
+    ``march_planes4_kernel`` in ``csrc/planes4.cu``, both on the current
+    stream; on CPU tensors: the plain version :func:`march_planes4_ref`.
+    Any other device raises. Same arguments as :func:`march_planes4_ref`."""
     dev = _device_of(sw_cont, "march_planes4")
     if dev.type == "cpu":
         return march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins,
                                  dirs, active, height=height, width=width)
     nw, ns, gs = _world_dims(sw_cont, wmeta_pad)
-    checks = _table_args(scal, gw2, sw_cont, wmeta_pad)
-    if origins is not None:
-        checks += [("origins", origins, torch.float32, (height, width, 3)),
-                   ("dirs", dirs, torch.float32, (height, width, 3)),
-                   ("active", active, torch.bool, (height, width))]
-    _check(dev, checks)
-    nsx, nsy = _sb_grid(height, width)
-    touched = torch.empty(nsx * nsy, dtype=torch.int32, device=dev)
+    _check(dev, _table_args(scal, gw2, sw_cont, wmeta_pad))
+    # touched4 checks the bundle before either kernel launches
+    marks = touched4(scal, origins, dirs, active, height=height, width=width)
     f32 = dict(dtype=torch.float32, device=dev)
     ts, wa, we = (torch.empty((height, width), **f32) for _ in range(3))
     fl = torch.empty((height, width), dtype=torch.int32, device=dev)
-    ptr = [None if x is None else x.data_ptr()
-           for x in (origins, dirs, active)]
     _run(dev, "march_planes4", _build.load("planes4").march_planes4_launch,
          scal.data_ptr(), gw2.data_ptr(), sw_cont.data_ptr(),
-         wmeta_pad.data_ptr(), *ptr, touched.data_ptr(), ts.data_ptr(),
-         fl.data_ptr(), wa.data_ptr(), we.data_ptr(), height, width, nw, ns,
-         gs, nsx, nsy)
+         wmeta_pad.data_ptr(), *_bundle_ptrs(origins, dirs, active),
+         marks.data_ptr(), ts.data_ptr(), fl.data_ptr(), wa.data_ptr(),
+         we.data_ptr(), height, width, nw, ns, gs)
     march_planes4.launches += 1
     return ts, fl, wa, we
 
@@ -1020,7 +1092,14 @@ def _trace_frame4(rg, origin, inv_view, inv_proj, origins3=None, dirs3=None,
                                    width=w)
     if raw_out:
         return ts, fl, wa, we
+    return _trace_result(ts, fl, wa, we)
 
+
+def _trace_result(ts, fl, wa, we):
+    """The :class:`WavefrontResult` of a state-plane march's raw planes
+    (wavefront4.py:1739-1765): hit, pack voxel id, normal, ``t`` (the raw
+    carry), water length (open interval closed at ``t``) and steps."""
+    f32 = torch.float32
     hit = ((fl >> _FL_HIT) & 1) != 0
     axmask = (fl >> _FL_AX) & 7
     sgnb = (fl >> _FL_SGN) & 7
