@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
 Drives the port's paths on the demo worlds of bench.py, through the entry
-points a user calls (``render_frame4``, ``trace_wavefront4_rays`` and
-``WavefrontRenderer.render_packed``), after building the hand-written CUDA
+points a user calls (``render_frame4``, ``trace_wavefront4_rays``,
+``WavefrontRenderer.render_packed``, ``path_trace3`` and
+``path_trace_fused4``), after building the hand-written CUDA
 kernels from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all
 at once):
 
@@ -39,7 +40,28 @@ at once):
      the bounds need; each kernel both as back-to-back wrapper calls and
      as the device time of the same calls replayed from a CUDA graph;
  11. phases 4 and 10's primary timing on the 16-chunk world (512³ voxels,
-     117 MB of tables), bench camera + 12 orbit cameras.
+     117 MB of tables), bench camera + 12 orbit cameras;
+ 12. the path tracers on the 8-chunk world at 1920x1080 (config3's frame:
+     config2's sun, 500-step cap), bench camera + 12 orbit cameras, on the
+     demo materials and on the mirror table of tests/test_pathtrace4.py
+     (scatter 0: nothing drawn): the one-launch kernel ``pt4`` vs its
+     plain version with 0, 1 and 2 bounces (bit for bit where nothing is
+     drawn, else the path-tracing bar: 99% of pixels within 2/255);
+     ``path_trace_fused4`` vs ``path_trace3`` where nothing is drawn, bit
+     for bit; ``matfetch4`` vs its plain version on the flags of both
+     legs of the one-bounce frame, bit for bit;
+ 13. both path tracers with one bounce at 320x180, card vs the plain
+     versions on the CPU: the path-tracing bar;
+ 14. 10 config3 frames through ``path_trace3`` (two march and two fetch
+     launches a frame) and 10 through ``path_trace_fused4`` (one ``pt4``
+     launch a frame), counted; the last frames finite, the fused one
+     within the bar of its plain version, the routes' mean radiance
+     within 5%;
+ 15. timing: both routes' frames (static, 12-camera orbit), ``matfetch4``
+     and ``pt4`` alone and the bounce leg's ``march_planes4`` (wrapper
+     calls and CUDA-graph device time), the plain versions, and the steps
+     the bounds need;
+ 16. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -119,9 +141,9 @@ def sun_of(cam):
     return (float(cam.pos[0]) + 900.0, 2500.0, float(cam.pos[2]) + 300.0)
 
 
-def build_world(w_chunks, device="cuda"):
+def build_world(w_chunks, device="cuda", mats=None):
     """bench.py's demo world: (RenderGrid3 on ``device``, materials, edge
-    in voxels)."""
+    in voxels); ``mats`` replaces the demo materials."""
     from voxelraytracing_tpu_torch.ops import noise
     from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
     from voxelraytracing_tpu_torch.world.demo import (
@@ -131,7 +153,7 @@ def build_world(w_chunks, device="cuda"):
     grids, cells = demo_chunk_grids_host(
         perm, np.zeros(3, np.int64), w_chunks,
         w_chunks * 32 * 0.45, int(w_chunks * 32 * 0.28))
-    mats = demo_materials()
+    mats = demo_materials() if mats is None else mats
     rg = build_render_grid3_host(grids, cells, np.zeros(3, np.int32),
                                  w_chunks, mats, device=device)
     return rg, mats, w_chunks * 32
@@ -649,12 +671,274 @@ def count_main_path(rg, mats, v, phase):
     return counts
 
 
+# ------------------------------------------------------------ path tracing
+
+# config3's frame (benchmarks/run.py:354-415): one bounce, one sample, a
+# 500-step cap; the sun of sun_of
+PT_KW = dict(bounces=1, samples=1, step_cap=500)
+N_ORBIT_PT = 12
+# the mirror table of tests/test_pathtrace4.py:53-66: scatter 0 for every
+# material, so no bounce draws a random number; voxel 1 emits
+MIRROR = {
+    1: {"color": (0.55, 0.55, 0.55), "state": "solid", "scatter": 0.0,
+        "emission": 0.5},
+    2: {"color": (0.55, 0.35, 0.15), "state": "solid", "scatter": 0.0},
+    3: {"color": (0.30, 0.68, 0.24), "state": "solid", "scatter": 0.0},
+    4: {"color": (0.12, 0.30, 0.85), "state": "liquid", "scatter": 0.0},
+}
+# FP32 operations of a path outside its march steps: its camera ray and
+# ray constants once a sample (45); at each leg end the water (3),
+# absorption, emission and albedo (12) and the next leg's ray constants
+# (21). The sky, Box-Muller and every transcendental are not counted, so
+# the bound stays a least time.
+PT_SAMPLE_OPS = 45
+PT_LEG_OPS = 36
+PT_BAR = 0.99  # share of pixels within 2/255 (tools/tpu_correctness.py:190)
+
+
+def pt_bar(a, b):
+    """Share of pixels of two radiance frames whose every channel is
+    within 2/255."""
+    return float(((a - b).abs().amax(dim=-1) <= 2.0 / 255.0).float().mean())
+
+
+def pt_args(rg, mats, cam, prepared=None):
+    """``pt4``'s arguments of a config3 frame, and its (height, width)."""
+    from voxelraytracing_tpu_torch.ops.pathtrace3 import pt_inputs
+
+    return pt_inputs(rg, cam, mats, sun_pos=sun_of(cam),
+                     step_cap=PT_KW["step_cap"], prepared=prepared)
+
+
+def pt_frame(fn, rg, mats, cam, **kw):
+    """A config3 frame through the entry point ``fn``."""
+    return fn(rg, cam, mats, sun_pos=sun_of(cam), **{**PT_KW, **kw})
+
+
+def pt_bounce_bundle(args, dims, full_size):
+    """The camera leg's planes of a one-bounce frame on the v4 route and
+    the bounce bundle path_trace3 makes from them (default key)."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import prng
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    scal, gw2, mlut, swc, wmp = args
+    h, w = dims
+    sf = [float(x) for x in scal.cpu().numpy()]
+    pxi, pyi = t4._pixels(h, w, scal.device)
+    planes = t4.march_planes4(scal, gw2, swc, wmp, height=h, width=w)
+    ts, fl = planes[0].reshape(-1), planes[1].reshape(-1)
+    mat = p3.matfetch4_ref(fl, mlut)
+    base = p3._sample_base(prng.fold_in(prng.split(None, 1)[0], 0))
+    rays = p3._bounce_rays(t4._camera_rays(sf, pxi, pyi), ts, (fl >> 2) & 7,
+                           mat.scatter, p3.ray_ids(pxi, pyi, *full_size),
+                           base)
+    return planes, p3._bundle(rays, ((fl >> 1) & 1) != 0, h, w)
+
+
+def pt_leg_flags(args, dims, full_size):
+    """The flags planes of both legs of a one-bounce frame on the v4
+    route."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    scal, gw2, _, swc, wmp = args
+    planes, bundle = pt_bounce_bundle(args, dims, full_size)
+    return planes[1], t4.march_planes4(scal, gw2, swc, wmp, *bundle,
+                                       height=dims[0], width=dims[1])[1]
+
+
+def compare_pt(worlds, cams, phase):
+    """pt4 vs pt4_ref with 0, 1 and 2 bounces on both tables; the two
+    routes against each other where nothing is drawn; matfetch4 vs
+    matfetch4_ref on the flags of both legs of the one-bounce frame.
+    Returns the largest differences of pt4 and matfetch4."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    bad = dict(exact=0, routes=0, mat=0, finite=0)
+    diffuse_words = frames = 0
+    worst_bar, err, mat_err = 1.0, 0.0, 0.0
+    for cam in cams:
+        for name, (rg, mats) in worlds.items():
+            args, (h, w) = pt_args(rg, mats, cam)
+            for bounces in (0, 1, 2):
+                kw = dict(height=h, width=w, bounces=bounces, samples=1)
+                got = p4.pt4(*args, **kw)
+                ref = p4.pt4_ref(*args, **kw)
+                frames += 1
+                bad["finite"] += int((~torch.isfinite(got)).sum())
+                err = max(err, float((got - ref).abs().max()))
+                if name == "mirror" or bounces == 0:
+                    bad["exact"] += words_differ(got, ref)
+                    v4 = pt_frame(p3.path_trace3, rg, mats, cam,
+                                  bounces=bounces, v4=True)
+                    bad["routes"] += words_differ(v4, got)
+                else:
+                    diffuse_words += words_differ(got, ref)
+                    worst_bar = min(worst_bar, pt_bar(got, ref))
+            if name == "demo":
+                for fl in pt_leg_flags(args, (h, w), cam.proj_size):
+                    a = p3.matfetch4(fl, args[2])
+                    b = p3.matfetch4_ref(fl, args[2])
+                    bad["mat"] += sum(words_differ(x, y) for x, y in zip(a, b))
+                    mat_err = max(mat_err, max(float((x - y).abs().max())
+                                               for x, y in zip(a, b)))
+    w, h = cams[0].proj_size
+    say(phase, f"{len(cams)} cameras at {w}x{h}, {frames} pt4 frames "
+        f"(bounces 0-2, demo and mirror tables): pt4 vs plain differing "
+        f"words where nothing is drawn {bad['exact']}, on diffuse bounces "
+        f"{diffuse_words} (worst share within 2/255 {worst_bar:.6f}, max abs "
+        f"diff {err}); fused vs path_trace3 where nothing is drawn "
+        f"{bad['routes']}; matfetch4 vs plain on both legs' flags "
+        f"{bad['mat']}; non-finite {bad['finite']}")
+    check(bad["exact"] == 0 and bad["routes"] == 0 and bad["mat"] == 0
+          and bad["finite"] == 0, "path tracers disagree on the card")
+    check(worst_bar >= PT_BAR, "pt4 misses the path-tracing bar")
+    return err, mat_err
+
+
+def compare_pt_cpu(cpu_worlds, worlds, v, phase):
+    """Both routes with one bounce on the card vs the plain versions on
+    the CPU at 320x180: the path-tracing bar."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    static, orbit = bench_cams(v, 320, 180, N_ORBIT_PT)
+    worst, words, n = 1.0, 0, 0
+    for cam in [static] + orbit[::3]:
+        for name in worlds:
+            for fn, kw in ((p3.path_trace3, dict(v4=True)),
+                           (p4.path_trace_fused4, {})):
+                a = pt_frame(fn, *worlds[name], cam, **kw).cpu()
+                b = pt_frame(fn, *cpu_worlds[name], cam, **kw)
+                worst = min(worst, pt_bar(a, b))
+                words += words_differ(a, b)
+                n += 1
+    say(phase, f"{n} one-bounce frames at 320x180 (both routes, demo and "
+        f"mirror tables), card vs CPU: worst share of pixels within 2/255 "
+        f"{worst:.6f} (differing words {words})")
+    check(worst >= PT_BAR, "path tracers miss the bar against the CPU")
+
+
+def count_pt_main_path(rg, mats, cams, phase):
+    """The two path-tracing paths, each driven with the counts set to 0
+    just before and read just after: config3 frames through path_trace3
+    (v4 route) and through path_trace_fused4. The last fused frame is
+    held against the plain version, the routes' mean radiance against
+    each other (their draws differ: within 5%, as
+    tests/test_pathtrace4.py:93-104 holds them)."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    counters = (p3.matfetch4, t4.march_planes4, t4.touched4, p4.pt4,
+                t4.march_fused4, t4.shade4)
+    prep = t4.prepare_grid4(rg)
+    counts, last = {}, {}
+    for route, fn, kw in (("path_trace3", p3.path_trace3, dict(v4=True)),
+                          ("fused", p4.path_trace_fused4, {})):
+        for c in counters:
+            c.launches = 0
+        for cam in cams:
+            img = pt_frame(fn, rg, mats, cam, prepared=prep, **kw)
+        torch.cuda.synchronize()
+        counts[route] = [c.launches for c in counters]
+        last[route] = img
+    args, (h, w) = pt_args(rg, mats, cams[-1], prep)
+    ref = p4.pt4_ref(*args, height=h, width=w, bounces=PT_KW["bounces"],
+                     samples=PT_KW["samples"])
+    bar = pt_bar(last["fused"], ref)
+    means = [float(last[r].mean()) for r in ("path_trace3", "fused")]
+    ok = all(tuple(x.shape) == (HEIGHT, WIDTH, 3)
+             and bool(torch.isfinite(x).all()) and bool((x >= 0).all())
+             for x in last.values())
+    n = len(cams)
+    for route in ("path_trace3", "fused"):
+        say(phase, f"{route} x{n} config3 frames: launches matfetch4/planes/"
+            f"touched/pt4/fused/shade {counts[route]}")
+    say(phase, f"last frames {tuple(last['fused'].shape)} finite and "
+        f"non-negative {ok}; fused vs plain within 2/255 {bar:.6f}; mean "
+        f"radiance path_trace3 {means[0]:.6f}, fused {means[1]:.6f}")
+    check(counts["path_trace3"] == [2 * n, 2 * n, 2 * n, 0, 0, 0],
+          "path_trace3 did not launch the march and the fetch twice a frame")
+    check(counts["fused"] == [0, 0, 0, n, 0, 0],
+          "path_trace_fused4 did not launch pt4 once a frame")
+    check(ok and bar >= PT_BAR, "path-traced frames are wrong")
+    check(abs(means[0] - means[1]) <= 0.05 * means[1],
+          "the two routes' mean radiance differs by more than 5%")
+    return counts
+
+
+def time_pt(rg, mats, static, orbit, phase):
+    """ms a config3 frame of both routes (static, orbit), matfetch4 and
+    pt4 alone (wrapper calls and CUDA-graph device time) and their plain
+    versions, and what the bounds need, on the static camera."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    prep = t4.prepare_grid4(rg)
+    n = len(orbit)
+    out = {}
+    for route, fn, kw in (("path_trace3", p3.path_trace3, dict(v4=True)),
+                          ("fused", p4.path_trace_fused4, {})):
+        out[route + "_static"] = median_windows(lambda i: pt_frame(
+            fn, rg, mats, static, prepared=prep, **kw), n)
+        out[route + "_orbit"] = median_windows(lambda i: pt_frame(
+            fn, rg, mats, orbit[i % n], prepared=prep, **kw), n)
+    args, (h, w) = pt_args(rg, mats, static, prep)
+    pkw = dict(height=h, width=w, bounces=PT_KW["bounces"],
+               samples=PT_KW["samples"])
+    fl = t4.march_planes4(args[0], args[1], args[3], args[4], height=h,
+                          width=w)[1]
+    time_kernel(out, "matfetch4", lambda i: p3.matfetch4(fl, args[2]))
+    bundle = pt_bounce_bundle(args, (h, w), static.proj_size)[1]
+    time_kernel(out, "planes_bounce", lambda i: t4.march_planes4(
+        args[0], args[1], args[3], args[4], *bundle, height=h, width=w))
+    time_kernel(out, "pt4", lambda i: p4.pt4(*args, **pkw))
+    out["plain_matfetch4"] = plain_ms(lambda: p3.matfetch4_ref(fl, args[2]))
+    out["plain_pt4"] = plain_ms(lambda: p4.pt4_ref(*args, **pkw))
+    _, out["steps"], out["legs"] = p4.pt4_run(*args, **pkw)
+    out["pixels"] = h * w
+    rays2 = 2 * h * w
+    for route in ("path_trace3", "fused"):
+        for k in ("static", "orbit"):
+            t = out[f"{route}_{k}"]
+            say(phase, f"{w}x{h} {route} config3 frame {k}: {t:.4f} ms "
+                f"({rays2 / t / 1e3:.3f} Mrays/s at 2 rays/pixel)")
+    for k in ("matfetch4", "pt4", "planes_bounce"):
+        say(phase, f"{w}x{h} {k}: {out[k]:.4f} ms a call, "
+            f"{out[k + '_dev']:.4f} ms on the device"
+            + (f", plain {out['plain_' + k]:.2f} ms"
+               if "plain_" + k in out else ""))
+    say(phase, f"{w}x{h} (planes_bounce is the bounce leg of path_trace3: "
+        f"marks and march of its bundle)")
+    say(phase, f"{w}x{h} static pt4 legs: {out['legs']} rays marched, "
+        f"{out['steps']} steps")
+    return out
+
+
+def pt_bounds(tp):
+    """Least times on the static camera: matfetch4 moves 24 B a pixel
+    (flags in, five planes out); pt4 writes 12 B a pixel and does the
+    steps its legs took plus the per-sample and per-leg work."""
+    px = tp["pixels"]
+    return {
+        "matfetch4": bound(24 * px, 0),
+        "pt4": bound(12 * px + 10 * 128 * 4,
+                     tp["steps"] * STEP_OPS + px * PT_KW["samples"]
+                     * PT_SAMPLE_OPS + tp["legs"] * PT_LEG_OPS),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from voxelraytracing_tpu_torch import _build
+    from voxelraytracing_tpu_torch.ops.materials import make_material_table
     from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
     from voxelraytracing_tpu_torch.ops.wavefront4 import prepare_grid4
 
@@ -696,8 +980,6 @@ def main():
     counts = count_main_path(rg, mats, v, 9)
     t8 = time_primary(rg, prep, lut, v, 10)
     ts = {size: time_shadows(rg, prep, lut, v, size, 10) for size in SIZES}
-    del rg, prep, rg_cpu
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rg16, _, v16 = build_world(16)
@@ -710,6 +992,20 @@ def main():
     err = max(err, compare_on_card(rg16, prep16, lut, [s16] + o16, 4))
     time_primary(rg16, prep16, lut, v16, 11, N_ORBIT_16)
     del rg16, prep16
+    torch.cuda.empty_cache()
+
+    # the path tracers on the 8-chunk world, demo and mirror tables
+    mirror = make_material_table(256, MIRROR)
+    worlds = {"demo": (rg, mats),
+              "mirror": (build_world(8, mats=mirror)[0], mirror)}
+    cpu_worlds = {"demo": (rg_cpu, mats),
+                  "mirror": (build_world(8, "cpu", mirror)[0], mirror)}
+    static, orbit = bench_cams(v, WIDTH, HEIGHT, N_ORBIT_PT)
+    pt_err, mat_err = compare_pt(worlds, [static] + orbit, 12)
+    compare_pt_cpu(cpu_worlds, worlds, v, 13)
+    pt_counts = count_pt_main_path(rg, mats, orbit[:10], 14)
+    tp = time_pt(rg, mats, static, orbit, 15)
+    del worlds, cpu_worlds, rg, prep, rg_cpu
     torch.cuda.empty_cache()
 
     px = WIDTH * HEIGHT
@@ -730,6 +1026,10 @@ def main():
         b["fused_kernel_static"], b["planes_camera"], b["planes_rays"],
         b["shade"])
     b_tcam, b_trays = b["touched_camera"], b["touched_rays"]
+    bp = pt_bounds(tp)
+    for k in ("matfetch4", "pt4"):
+        say(15, f"{WIDTH}x{HEIGHT} {k}: {tp[k + '_dev']:.4f} ms on the "
+            f"device, least {bp[k][0]:.5f} ms, bound by {bp[k][1]}")
     src = "voxelraytracing_tpu_torch/csrc/"
     kernels = [
         dict(name="march_fused4", source=src + "march4.cu",
@@ -763,6 +1063,15 @@ def main():
              launches=counts["split"][3],
              max_abs_err=max(e["shade"] for e in errs.values()),
              ms=sh["shade_dev"], plain_ms=sh["plain_shade"], bound=b_shade),
+        dict(name="matfetch4", source=src + "matfetch4.cu",
+             replaces="voxelraytracing_tpu/ops/wavefront3.py:2306",
+             launches=pt_counts["path_trace3"][0], max_abs_err=mat_err,
+             ms=tp["matfetch4_dev"], plain_ms=tp["plain_matfetch4"],
+             bound=bp["matfetch4"]),
+        dict(name="pt4", source=src + "pathtrace4.cu",
+             replaces="voxelraytracing_tpu/ops/pathtrace4.py:101",
+             launches=pt_counts["fused"][3], max_abs_err=pt_err,
+             ms=tp["pt4_dev"], plain_ms=tp["plain_pt4"], bound=bp["pt4"]),
     ]
     line = []
     for k in kernels:
@@ -773,6 +1082,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=None))
     print(json.dumps({"kernels": line}))
+    say(16, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

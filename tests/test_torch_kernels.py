@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused frame (with and without the shadow leg), the state-plane
-march and its start marks (camera rays and per-ray bundles) and the split
-shade, each equal word for word, and each wrapper refusing a wrong dtype
-or shape.
+march and its start marks (camera rays and per-ray bundles), the split
+shade and the material fetch, each equal word for word; the one-launch
+path tracer, equal where nothing is drawn and within the path-tracing bar
+elsewhere, and equal to the v4 path-tracing route where nothing is drawn;
+each wrapper refusing a wrong dtype or shape.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -214,3 +216,139 @@ def test_kernel_rejects_bad_tables(card_world):
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError, match="gw2"):
         t4.march_fused4(*bad, **kw)
+
+
+# ------------------------------------------------------------ path tracing
+
+MIRROR = {
+    1: {"color": (0.55, 0.55, 0.55), "state": "solid", "scatter": 0.0,
+        "emission": 0.5},
+    2: {"color": (0.55, 0.35, 0.15), "state": "solid", "scatter": 0.0},
+    3: {"color": (0.30, 0.68, 0.24), "state": "solid", "scatter": 0.0},
+    4: {"color": (0.12, 0.30, 0.85), "state": "liquid", "scatter": 0.0},
+}
+
+
+@pytest.fixture(scope="module")
+def pt_worlds(card_world):
+    """The demo world and the same terrain with the mirror table of
+    tests/test_pathtrace4.py:53-66 (scatter 0 everywhere: no draw)."""
+    from voxelraytracing_tpu_torch.ops.materials import make_material_table
+
+    rg, _, mats = card_world
+    w = 4
+    grids, cells = demo_chunk_grids_host(
+        noise.make_permutation(7), np.zeros(3, np.int64), w,
+        w * 32 * 0.45, int(w * 32 * 0.28))
+    mirror = make_material_table(256, MIRROR)
+    mrg = build_render_grid3_host(grids, cells, np.zeros(3, np.int32), w,
+                                  mirror, device="cuda")
+    return {"demo": (rg, mats), "mirror": (mrg, mirror)}
+
+
+def _pt_args(rg, mats, cam, key=(7, 11)):
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+
+    return p3.pt_inputs(rg, cam, mats, sun_pos=SUN, step_cap=500,
+                        key=np.asarray(key, np.uint32))
+
+
+def _pt_bar(a, b):
+    return float(((a - b).abs().amax(dim=-1) <= 2.0 / 255.0).float().mean())
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
+def test_matfetch_kernel_equals_plain_version(pt_worlds, i):
+    """The material fetch on a frame's flags and on words carrying every
+    hit id; one launch a call."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+
+    rg, mats = pt_worlds["demo"]
+    cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+    (scal, gw2, mlut, swc, wmp), (h, w) = _pt_args(rg, mats, cam)
+    fl = t4.march_planes4(scal, gw2, swc, wmp, height=h, width=w)[1]
+    ids = torch.arange(fl.numel(), dtype=torch.int32, device="cuda") % 256
+    words = (fl & ~(0xFF << 17)) | (ids.reshape(fl.shape) << 17)
+    for x in (fl, words):
+        before = p3.matfetch4.launches
+        got = p3.matfetch4(x, mlut)
+        torch.cuda.synchronize()
+        assert p3.matfetch4.launches == before + 1
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, p3.matfetch4_ref(x, mlut)))
+
+
+@pytest.mark.parametrize("bounces", [0, 1, 2])
+@pytest.mark.parametrize("scene", ["demo", "mirror"])
+def test_pt_kernel_equals_plain_version(pt_worlds, scene, bounces):
+    """The one-launch path tracer against its plain version on four
+    cameras and the outside one at 200x120: bit for bit where nothing is
+    drawn (no bounce, mirror materials), else the path-tracing bar (99% of
+    pixels within 2/255: the card's libm and torch's may round Box-Muller's
+    log/sin/cos apart)."""
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    rg, mats = pt_worlds[scene]
+    for i in range(len(CAMS)):
+        cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (200, 120))
+        args, (h, w) = _pt_args(rg, mats, cam)
+        for samples in (1, 2) if bounces == 1 else (1,):
+            kw = dict(height=h, width=w, bounces=bounces, samples=samples)
+            before = p4.pt4.launches
+            got = p4.pt4(*args, **kw)
+            torch.cuda.synchronize()
+            assert p4.pt4.launches == before + 1
+            assert got.shape == (h, w, 3) and bool(torch.isfinite(got).all())
+            ref = p4.pt4_ref(*args, **kw)
+            if scene == "mirror" or bounces == 0:
+                assert torch.equal(got, ref), (i, samples)
+            else:
+                assert _pt_bar(got, ref) >= 0.99, (i, samples)
+
+
+@pytest.mark.parametrize("case", [("demo", 0), ("mirror", 1), ("mirror", 2)])
+def test_path_tracer_routes_agree_on_the_card(pt_worlds, case):
+    """Where nothing is drawn, the one-launch kernel equals the v4 route
+    (march_planes4 legs, matfetch4, torch leg ends) bit for bit, on a
+    frame of whole 16x8 tiles (the routes part on partial tiles, as in
+    JAX: the v4 route shades them as sky, the one-launch kernel leaves
+    them black); the v4 route launches the march and the fetch once for
+    the camera leg and once for each bounce leg."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    name, bounces = case
+    rg, mats = pt_worlds[name]
+    prep = t4.prepare_grid4(rg)
+    for i in range(4):
+        cam = CamData.create(CAMS[i][0], CAMS[i][1], 70.0, (192, 120))
+        kw = dict(sun_pos=SUN, step_cap=500, bounces=bounces, prepared=prep)
+        before = (p3.matfetch4.launches, t4.march_planes4.launches)
+        a = p3.path_trace3(rg, cam, mats, v4=True, **kw)
+        torch.cuda.synchronize()
+        assert (p3.matfetch4.launches - before[0],
+                t4.march_planes4.launches - before[1]) == (1 + bounces,) * 2
+        b = p4.path_trace_fused4(rg, cam, mats, **kw)
+        assert a.device.type == b.device.type == "cuda"
+        assert torch.equal(a, b), i
+
+
+def test_pt_kernels_reject_bad_inputs(pt_worlds):
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    rg, mats = pt_worlds["demo"]
+    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, (64, 32))
+    (scal, gw2, mlut, swc, wmp), (h, w) = _pt_args(rg, mats, cam)
+    fl = t4.march_planes4(scal, gw2, swc, wmp, height=h, width=w)[1]
+    with pytest.raises(ValueError, match="fl"):
+        p3.matfetch4(fl.float(), mlut)
+    with pytest.raises(ValueError, match="mlut"):
+        p3.matfetch4(fl, mlut[:6])
+    kw = dict(height=h, width=w, bounces=1, samples=1)
+    with pytest.raises(ValueError, match="mlut"):
+        p4.pt4(scal, gw2, mlut.double(), swc, wmp, **kw)
+    with pytest.raises(ValueError, match="scal"):
+        p4.pt4(scal.cpu(), gw2, mlut, swc, wmp, **kw)
+    with pytest.raises(ValueError, match="samples"):
+        p4.pt4(scal, gw2, mlut, swc, wmp, **{**kw, "samples": 0})

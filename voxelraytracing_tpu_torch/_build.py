@@ -42,6 +42,12 @@ _SIGNATURES = {
     "shade4": {
         "shade4_launch": (_I, [_P] * 8 + [_I] * 3 + [_F, _P]),
     },
+    "matfetch4": {
+        "matfetch4_launch": (_I, [_P] * 3 + [_I, _P]),
+    },
+    "pathtrace4": {
+        "pt4_launch": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
+    },
 }
 KERNELS = tuple(_SIGNATURES)
 

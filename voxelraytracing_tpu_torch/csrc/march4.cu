@@ -34,10 +34,6 @@ namespace {
 
 using namespace v4;
 
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
 template <bool kShadows>
 __global__ void __launch_bounds__(kThreads)
 march_fused4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,

@@ -1,10 +1,13 @@
 // Device functions shared by the v4 kernels for Hopper (sm_90a): the
 // camera ray, one march leg through the bit-plane world, the hit-id decode,
-// the flags word and the per-pixel shade epilogue.
+// the flags word, the per-pixel shade epilogue and the path tracer's leg
+// end.
 //
 // march4.cu (fused frame, with or without the shadow leg), planes4.cu
-// (state-plane march) and shade4.cu (split shade) all build on these, so
-// the fused and the split frame share one march and one shade: built alike
+// (state-plane march), shade4.cu (split shade) and pathtrace4.cu
+// (one-launch path tracer) all build on these, so the fused and the split
+// frame share one march and one shade, and both path tracers one march:
+// built alike
 // (--fmad=false, IEEE division and sqrt), they agree bit for bit, as the
 // JAX package's fused and split dispatches do. Every multiply and add
 // rounds on its own in the op order of the JAX kernel
@@ -70,6 +73,10 @@ __device__ __forceinline__ float sstep(float e0, float inv_span, float x) {
 
 __device__ __forceinline__ unsigned q8(float c) {
   return static_cast<unsigned>(static_cast<int>(fminf(fmaxf(c, 0.0f), 1.0f) * 255.0f));
+}
+
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
 __device__ __forceinline__ int step_cap_of(const float* s) {
@@ -322,6 +329,133 @@ __device__ __forceinline__ void stage(float* s, const float* scal, unsigned* gpa
   if (clut)
     for (int i = tid; i < 6 * kRow; i += kThreads) clut[i] = lut[i];
   __syncthreads();
+}
+
+// ---- path tracing (pathtrace4.cu): the end of one leg, in the op order of
+// voxelraytracing_tpu/ops/pathtrace4.py:transition (:573-694) and of the
+// plain versions (ops/pathtrace3.py _leg_shade, _bounce_rays).
+//
+// PT scalar row: 0-26 as above, 27-29 sun POSITION (world-local), 30 sun
+// intensity, 31-33 sky colour, 34-37 the key's 16-bit seed quads.
+// Material LUT f32[10,128]: channel k (emission, scatter, r, g, b) of hit
+// id v at flat word k*256 + v.
+
+constexpr int kMatLut = 10 * kRow;
+constexpr unsigned kGolden = 0x9E3779B9u;
+constexpr float kTwoPi = 0x1.921fb6p+2f;  // f32(2*pi)
+constexpr float kEpsN = 0.004f;          // bounce-origin nudge, f32(4 * 1e-3)
+
+// A path's throughput and gathered radiance.
+struct PathCarry {
+  float cr, cg, cb, lr, lg, lb;
+};
+
+// Draw j of a ray: the murmur3 finalizer of rid ^ base ^ j*0x632BE5AB, its
+// top 23 bits mapped into (0, 1) (never 0, so log is finite).
+__device__ __forceinline__ float hash_u01(unsigned rid, unsigned base, unsigned j) {
+  unsigned h = rid ^ base ^ (j * 0x632BE5ABu);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return static_cast<float>(static_cast<int>(h >> 9)) * (1.0f / 8388608.0f) +
+         (1.0f / 16777216.0f);
+}
+
+// Sky radiance along a ray, the sun disc seen from its origin.
+__device__ __forceinline__ void sky_rgb(const float* s, const Ray& r, float& sr, float& sg,
+                                        float& sb) {
+  const float gts = sstep(-0.01f, 100.0f, r.dy);
+  const float grad_t = powf(sstep(0.0f, 2.5f, r.dy), 0.35f);
+  const float svx = s[27] - r.ox;
+  const float svy = s[28] - r.oy;
+  const float svz = s[29] - r.oz;
+  const float sn = sqrtf(svx * svx + svy * svy + svz * svz);
+  const float sdot = (r.dx * svx + r.dy * svy + r.dz * svz) / sn;
+  const float sun = ((sdot > 0.99f && gts >= 1.0f) ? 1.0f : 0.0f) * s[30];
+  sr = 0.03f + ((1.0f + (s[31] - 1.0f) * grad_t) - 0.03f) * gts + sun;
+  sg = 0.03f + ((0.3f + (s[32] - 0.3f) * grad_t) - 0.03f) * gts + sun;
+  sb = 0.03f + ((0.0f + (s[33] - 0.0f) * grad_t) - 0.03f) * gts + sun;
+}
+
+// The end of a leg of a live path: Beer-Lambert absorption along the leg's
+// water (0.35, 0.08, 0.04 per voxel), then the sky for a miss, or the hit
+// voxel's emission and albedo. The plain versions add a zero where a term
+// does not apply; the sums start at +0 and so are never -0, for which
+// alone x + 0 != x, so skipping those adds changes no bit.
+__device__ __forceinline__ void leg_shade(const float* s, const float* lut, PathCarry& p,
+                                          const Ray& r, bool hit, float water, int vox) {
+  p.cr = p.cr * expf(-water * 0.35f);
+  p.cg = p.cg * expf(-water * 0.08f);
+  p.cb = p.cb * expf(-water * 0.04f);
+  if (!hit) {
+    float sr, sg, sb;
+    sky_rgb(s, r, sr, sg, sb);
+    p.lr = p.lr + p.cr * sr;
+    p.lg = p.lg + p.cg * sg;
+    p.lb = p.lb + p.cb * sb;
+    return;
+  }
+  const float e = lut[vox], mr = lut[2 * 256 + vox], mg = lut[3 * 256 + vox],
+              mb = lut[4 * 256 + vox];
+  p.lr = p.lr + p.cr * e * mr;
+  p.lg = p.lg + p.cg * e * mg;
+  p.lb = p.lb + p.cb * e * mb;
+  p.cr = p.cr * mr;
+  p.cg = p.cg * mg;
+  p.cb = p.cb * mb;
+}
+
+// The next ray of a path that hit at t: a unit-sphere Box-Muller sample
+// about the face normal (-sign(d) on the exit axes, -d when there are
+// none), mixed with the mirror reflection by the material's scatter; the
+// origin is the hit point with its crossing coordinates snapped to their
+// face, nudged kEpsN along the normal. `base` keys the draws.
+__device__ __forceinline__ Ray bounce_ray(const Ray& r, float t, int axm, float scat,
+                                          unsigned rid, unsigned base, float v) {
+  float nx = -sign_of(r.dx) * static_cast<float>(axm & 1);
+  float ny = -sign_of(r.dy) * static_cast<float>((axm >> 1) & 1);
+  float nz = -sign_of(r.dz) * static_cast<float>((axm >> 2) & 1);
+  if (nx == 0.0f && ny == 0.0f && nz == 0.0f) {
+    nx = -r.dx;
+    ny = -r.dy;
+    nz = -r.dz;
+  }
+  const float u1 = hash_u01(rid, base, 0), u2 = hash_u01(rid, base, 1);
+  const float u3 = hash_u01(rid, base, 2), u4 = hash_u01(rid, base, 3);
+  const float r1 = sqrtf(-2.0f * logf(u1));
+  const float a1 = u2 * kTwoPi;
+  const float r2 = sqrtf(-2.0f * logf(u3));
+  const float a2 = u4 * kTwoPi;
+  float vx = r1 * cosf(a1), vy = r1 * sinf(a1), vz = r2 * cosf(a2);
+  const float rn = fmaxf(sqrtf(vx * vx + vy * vy + vz * vz), 1e-6f);
+  vx = vx / rn;
+  vy = vy / rn;
+  vz = vz / rn;
+  float dfx = nx + vx, dfy = ny + vy, dfz = nz + vz;
+  const float dn = sqrtf(dfx * dfx + dfy * dfy + dfz * dfz);
+  const float dnm = fmaxf(dn, 1e-6f);
+  dfx = dn > 1e-6f ? dfx / dnm : nx;
+  dfy = dn > 1e-6f ? dfy / dnm : ny;
+  dfz = dn > 1e-6f ? dfz / dnm : nz;
+  const float dot = r.dx * nx + r.dy * ny + r.dz * nz;
+  const float spx = r.dx - 2.0f * dot * nx;
+  const float spy = r.dy - 2.0f * dot * ny;
+  const float spz = r.dz - 2.0f * dot * nz;
+  const float keep = 1.0f - scat;
+  float ndx = dfx * scat + spx * keep, ndy = dfy * scat + spy * keep,
+        ndz = dfz * scat + spz * keep;
+  const float nn = sqrtf(ndx * ndx + ndy * ndy + ndz * ndz);
+  const float nnm = fmaxf(nn, 1e-6f);
+  ndx = nn > 1e-6f ? ndx / nnm : nx;
+  ndy = nn > 1e-6f ? ndy / nnm : ny;
+  ndz = nn > 1e-6f ? ndz / nnm : nz;
+  float hx = r.ox + r.dx * t, hy = r.oy + r.dy * t, hz = r.oz + r.dz * t;
+  if (axm & 1) hx = floorf(hx + 0.5f);
+  if (axm & 2) hy = floorf(hy + 0.5f);
+  if (axm & 4) hz = floorf(hz + 0.5f);
+  return make_ray(hx + nx * kEpsN, hy + ny * kEpsN, hz + nz * kEpsN, ndx, ndy, ndz, v);
 }
 
 }  // namespace v4

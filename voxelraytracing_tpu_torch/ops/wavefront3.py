@@ -436,6 +436,20 @@ def color_lut_rows(colors):
     return torch.from_numpy(rows)
 
 
+def material_lut_rows(color, emission, scatter):
+    """Material tables -> [10,128] f32 LUT rows (e0 e1 s0 s1 r0 r1 g0 g1
+    b0 b1; each row pair holds ids 0-127 | 128-255), on the CPU."""
+    n = len(np.asarray(emission))
+    e = np.zeros(256, np.float32)
+    s = np.zeros(256, np.float32)
+    c = np.zeros((256, 3), np.float32)
+    e[:n] = np.asarray(emission, np.float32)[:256]
+    s[:n] = np.asarray(scatter, np.float32)[:256]
+    c[: len(np.asarray(color))] = np.asarray(color, np.float32)[:256]
+    rows = np.stack([e, s, c[:, 0], c[:, 1], c[:, 2]]).reshape(10, 128)
+    return torch.from_numpy(rows)
+
+
 def unpack_rgba8(img):
     """Packed RGBA8 words [H,W] (int32 tensor or uint32 array) ->
     uint8[H,W,3] on the host."""

@@ -225,31 +225,36 @@ def _strictly_inside(v, ox, oy, oz):
     return (ox > 0.0) & (ox < v) & (oy > 0.0) & (oy < v) & (oz > 0.0) & (oz < v)
 
 
-def _ray_consts(v, ox, oy, oz, dx, dy, dz):
-    """Per-ray DDA constants (wavefront4.py _make_leg): direction signs as
-    ±1, signed inverse directions, axis-parallel guards, slab exit."""
-    f32 = torch.float32
+def _inv_dir(c):
+    c2 = torch.where(c >= 0.0, torch.clamp_min(c, 1e-7),
+                     torch.clamp_max(c, -1e-7))
+    return 1.0 / c2
 
-    def inv(c):
-        c2 = torch.where(c >= 0.0, torch.clamp_min(c, 1e-7),
-                         torch.clamp_max(c, -1e-7))
-        return 1.0 / c2
 
-    iv = [inv(dx), inv(dy), inv(dz)]
-    sgf = [(d > 0.0).to(f32) for d in (dx, dy, dz)]
-    sgf = [sc + sc - 1.0 for sc in sgf]                     # ±1 exactly
-    ivs = [i * g for i, g in zip(iv, sgf)]
-    big = [i.abs() >= 0.99 * _BIG_IV for i in iv]
+def _slab_exit(v, ox, oy, oz, iv):
+    """Where a ray leaves the world's slab ``[0, v)³``, capped at
+    ``4v + 16``; ``iv`` are its inverse directions (:func:`_inv_dir`)."""
 
     def slab(oc, ivc):
         return torch.maximum((0.0 - oc) * ivc, (v - oc) * ivc)
 
     t_cap = float(np.float32(4.0) * np.float32(v) + np.float32(16.0))
-    t_exit = torch.clamp_max(
+    return torch.clamp_max(
         torch.minimum(slab(ox, iv[0]),
                       torch.minimum(slab(oy, iv[1]), slab(oz, iv[2]))),
         t_cap)
-    return sgf, ivs, big, t_exit
+
+
+def _ray_consts(v, ox, oy, oz, dx, dy, dz):
+    """Per-ray DDA constants (wavefront4.py _make_leg): direction signs as
+    ±1, signed inverse directions, axis-parallel guards, slab exit."""
+    f32 = torch.float32
+    iv = [_inv_dir(dx), _inv_dir(dy), _inv_dir(dz)]
+    sgf = [(d > 0.0).to(f32) for d in (dx, dy, dz)]
+    sgf = [sc + sc - 1.0 for sc in sgf]                     # ±1 exactly
+    ivs = [i * g for i, g in zip(iv, sgf)]
+    big = [i.abs() >= 0.99 * _BIG_IV for i in iv]
+    return sgf, ivs, big, _slab_exit(v, ox, oy, oz, iv)
 
 
 def _leg_starts(v, step_cap, ox, oy, oz, dx, dy, dz, t_exit):
