@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's paths on the demo worlds of bench.py, through the entry
-points a user calls (``render_frame4``, ``trace_wavefront4_rays``,
-``WavefrontRenderer.render_packed``, ``path_trace3`` and
-``path_trace_fused4``), after building the hand-written CUDA
-kernels from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all
-at once):
+Drives the port's paths on the demo worlds of bench.py and on a streamed
+strip of demo terrain, through the entry points a user calls
+(``render_frame4``, ``trace_wavefront4_rays``,
+``WavefrontRenderer.render_packed``, ``path_trace3``,
+``path_trace_fused4`` and ``RenderGrid3Builder``), after building the
+hand-written CUDA kernels from ``voxelraytracing_tpu_torch/csrc`` (one
+nvcc per source, all at once):
 
   1. the card's name and power limit (exits non-zero without a CUDA card);
   2. build the kernels; print registers, shared memory and spills of each
@@ -18,8 +19,10 @@ at once):
      hold to the JAX package): the cross-platform bar of
      TPU_CORRECTNESS.json, 0 hit and voxel mismatches, every pixel within
      2/255;
-  6. 10 frames through ``render_packed``: the fused kernel's launch count
-     rises by exactly 10;
+  6. 10 frames through ``render_packed`` (the renderer's default route,
+     the split frame): marks, planes and shade once a frame, the fused
+     kernel never; 10 frames through ``render_frame4(fused=True)``: the
+     fused kernel once a frame;
   7. the shadowed frame (config2's sun, 500-step cap) at 1920x1080 and
      1280x720, bench camera + 48 orbit cameras: fused kernel vs its plain
      version exactly equal; split frame == fused frame, with and without
@@ -31,9 +34,9 @@ at once):
      none);
   8. 320x180 with shadows, card vs CPU: 0 hit, voxel and shadow-bit
      mismatches, every pixel within 2/255;
-  9. 10 shadowed frames through ``render_packed`` (the fused kernel, 10
-     launches) and 10 split shadowed frames (mark and planes kernels
-     twice each, shade once per frame);
+  9. as 6 with shadows: 10 shadowed frames through ``render_packed``
+     (marks and planes twice a frame, shade once) and through
+     ``render_frame4(fused=True)`` (the fused kernel once a frame);
  10. timing with CUDA events, median of 5 windows: the primary frame and
      kernel (1080p), the fused and split shadowed frames, each kernel
      alone and the plain versions (1080p and 720p), with the step counts
@@ -61,7 +64,30 @@ at once):
      and ``pt4`` alone and the bounce leg's ``march_planes4`` (wrapper
      calls and CUDA-graph device time), the plain versions, and the steps
      the bounds need;
- 16. the script's total seconds.
+ 16. the strip world (config4ck's layout, benchmarks/run.py:586-633: 32 x
+     3 x 8 chunks of demo terrain) in a 40-chunk window (20 windows a
+     side, super-cells of 2): dense and sparse builders with the same 21
+     streamed columns; the sparse tables consistent; on 13 fly-through
+     cameras at 1920x1080 the fused, fused-shadowed and split-shadowed
+     frames of the sparse token equal the dense token's, flags and
+     packed words; each sparse kernel (fused, fused shadow, planes of
+     camera rays and of the shadow bundle) equals its plain version;
+     launches counted through 10 sparse fused-shadowed and 10 sparse
+     split-shadowed frames;
+ 17. the strip in an 80-chunk window (the reference's largest, 40
+     windows a side, super-cells of 4), sparse: 8 columns prefilled, then
+     23 streamed with 4 fused frames each (config4ck's loop), the 3-row
+     token carried; every 8th frame the kernel equals its plain version;
+     one fused launch a frame; at the end the same installs into a CPU
+     builder (tables equal word for word) and card vs CPU at 320x180
+     against the bar of phase 5, and the other sparse kernels against
+     their plain versions;
+ 18. timing: the streaming step (set_chunks + prepared of 128 chunks,
+     config4b) at 30 chunks dense and 80 sparse; the 80-chunk fly-through
+     (frames/s, ms/frame, its builder and frame shares); the sparse
+     kernels on a static 80-chunk frame with their least times and the
+     rows they read; the sparse tables' size;
+ 19. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -168,8 +194,8 @@ def channel_diff(a, b):
 
 
 def demangle(sym):
-    """``ns::name_kernel<flag>`` of a mangled kernel symbol
-    (``_ZN<len><ns><len><name>[ILb<flag>E]...``), else the symbol."""
+    """``name_kernel<flags>`` of a mangled kernel symbol
+    (``_ZN<len><ns><len><name>[I(Lb<flag>E)+E]...``), else the symbol."""
     pos = 3 if sym.startswith("_ZN") else len(sym)
     while pos < len(sym):
         m = re.match(r"\d+", sym[pos:])
@@ -178,8 +204,12 @@ def demangle(sym):
         start = pos + m.end()
         pos = start + int(m.group())
         if sym[start:pos].endswith("_kernel"):
-            flag = {"ILb1E": "<true>", "ILb0E": "<false>"}
-            return sym[start:pos] + flag.get(sym[pos:pos + 5], "")
+            m = re.match(r"I((?:Lb[01]E)+)E", sym[pos:])
+            if not m:
+                return sym[start:pos]
+            flags = re.findall(r"Lb([01])E", m.group(1))
+            return sym[start:pos] + "<" + ", ".join(
+                "true" if f == "1" else "false" for f in flags) + ">"
     return sym
 
 
@@ -222,15 +252,16 @@ def split_parts(args, kw):
 
     scal, gw2, lut, swc, wmp = args
     dims = dict(height=kw["height"], width=kw["width"])
+    mdims = dict(dims, sparse_ns=kw["sparse_ns"])  # the march's keywords
     row = scal.cpu().numpy()
     srow = torch.from_numpy(t4._split_shade_row(row)).to(scal.device)
-    planes = t4.march_planes4(scal, gw2, swc, wmp, **dims)
+    planes = t4.march_planes4(scal, gw2, swc, wmp, **mdims)
     bundle = t4._shadow_prep4(planes[0], planes[1], row)
-    shadow = t4.march_planes4(scal, gw2, swc, wmp, *bundle, **dims)
+    shadow = t4.march_planes4(scal, gw2, swc, wmp, *bundle, **mdims)
     sh = (shadow[1] >> 1) & 1
     return dict(scal=scal, srow=srow, gw2=gw2, lut=lut, swc=swc, wmp=wmp,
-                dims=dims, planes=planes, bundle=bundle, shadow=shadow,
-                sh=sh, kw=kw)
+                dims=dims, mdims=mdims, planes=planes, bundle=bundle,
+                shadow=shadow, sh=sh, kw=kw)
 
 
 def hit_rows(sw_cont, origins, dirs, t, hit, ns):
@@ -438,9 +469,12 @@ def plain_ms(fn):
     return statistics.median(event_ms(lambda i: fn(), 1) for _ in range(3))
 
 
-def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
-    """ms/frame of the unshadowed frame, the kernel alone and the plain
-    version at 1080p, and the primary steps of the static frame."""
+def time_primary(rg, prep, lut, mats, v, phase, n_orbit=N_ORBIT):
+    """ms/frame of the unshadowed frame (fused, and render_packed's split
+    route), the kernel alone and the plain version at 1080p, and the
+    primary steps of the static frame."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
     from voxelraytracing_tpu_torch.ops.wavefront4 import (
         frame_args, march_fused4, march_fused4_ref, render_frame4)
 
@@ -461,6 +495,11 @@ def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
     out["frame_static"] = median_windows(lambda i: frame(static), N_ORBIT)
     out["frame_orbit"] = median_windows(lambda i: frame(orbit[i % n_orbit]),
                                         N_ORBIT)
+    # the renderer's default route (JAX's v3 route: the split frame)
+    renderer = WavefrontRenderer(mats)
+    settings = RenderSettings(sun_pos=sun_of(static))
+    out["packed_static"] = median_windows(
+        lambda i: renderer.render_packed(rg, static, settings), N_ORBIT)
     sa, skw = args_of(static)
     time_kernel(out, "kernel_static", lambda i: march_fused4(*sa, **skw))
     oargs = [args_of(c) for c in orbit]
@@ -484,6 +523,9 @@ def time_primary(rg, prep, lut, v, phase, n_orbit=N_ORBIT):
             f"({rays / out['plain_' + k] / 1e3:.3f} Mrays/s)")
     say(phase, f"static steps {out['steps']}, hit subwindow rows "
         f"{out['rows']}")
+    say(phase, f"static: render_packed (default route, split frame) "
+        f"{out['packed_static']:.4f} ms a frame "
+        f"({rays / out['packed_static'] / 1e3:.3f} Mrays/s)")
     return out
 
 
@@ -621,53 +663,56 @@ def shadow_bounds(sh):
     }
 
 
-def count_main_path(rg, mats, v, phase):
+def count_main_path(rg, mats, v):
     """The main paths, each driven with the counts set to 0 just before
-    and read just after: 10 unshadowed and 10 shadowed frames through
-    render_packed (fused), 10 split shadowed frames."""
+    and read just after: 10 frames through render_packed (its default
+    route: the split frame) and 10 through render_frame4(fused=True),
+    unshadowed (phase 6) and shadowed (phase 9)."""
     from voxelraytracing_tpu_torch.models.raytracer import (
         STEP_CAP, STEPS_PER_ROUND, RenderSettings, WavefrontRenderer)
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
     counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4)
     _, orbit = bench_cams(v, WIDTH, HEIGHT)
+    prep = t4.prepare_grid4(rg)
     counts = {}
     renderer = WavefrontRenderer(mats)
-    for shadows in (False, True):
+    for shadows, phase in ((False, 6), (True, 9)):
         for c in counters:
             c.launches = 0
         for cam in orbit[:10]:
             settings = RenderSettings(sun_pos=sun_of(cam), shadows=shadows)
             img = renderer.render_packed(rg, cam, settings)
         torch.cuda.synchronize()
-        counts[shadows] = [c.launches for c in counters]
+        counts["packed", shadows] = [c.launches for c in counters]
         args, kw = t4.frame_args(
             rg, orbit[9], mats.color, sun_pos=settings.sun_pos,
             shadows=shadows, steps_per_round=STEPS_PER_ROUND,
-            step_cap=STEP_CAP, prepared=t4.prepare_grid4(rg))
+            step_cap=STEP_CAP, prepared=prep)
         rimg, _ = t4.march_fused4_ref(*args, **kw)
         alpha_ok = bool(((img >> 24) & 255 == 255).all())
         say(phase, f"render_packed x10 shadows={shadows}: launches "
-            f"fused/planes/touched/shade {counts[shadows]}, frame "
+            f"fused/planes/touched/shade {counts['packed', shadows]}, frame "
             f"{tuple(img.shape)} {img.dtype}, alpha ok {alpha_ok}, last "
             f"frame == plain version: {bool((img == rimg).all())}")
-        check(counts[shadows] == [10, 0, 0, 0],
-              "render_packed did not launch the fused kernel once per frame")
+        legs = 2 if shadows else 1
+        check(counts["packed", shadows] == [0, 10 * legs, 10 * legs, 10],
+              "render_packed did not draw the split frame once per frame")
         check(alpha_ok and bool((img == rimg).all()),
               "render_packed frame disagrees with the plain version")
-    for c in counters:
-        c.launches = 0
-    prep = t4.prepare_grid4(rg)
-    for cam in orbit[:10]:
-        t4.render_frame4(rg, cam, mats.color, prepared=prep, shadows=True,
-                         sun_pos=sun_of(cam), **{**BENCH_KW, "fused": False})
-    torch.cuda.synchronize()
-    counts["split"] = [c.launches for c in counters]
-    say(phase, f"split shadowed frames x10: launches "
-        f"fused/planes/touched/shade {counts['split']}")
-    check(counts["split"] == [0, 20, 20, 10],
-          "the split frame did not launch marks and planes twice each and "
-          "shade once")
+        for c in counters:
+            c.launches = 0
+        for cam in orbit[:10]:
+            t4.render_frame4(rg, cam, mats.color, prepared=prep,
+                             shadows=shadows, sun_pos=sun_of(cam),
+                             **BENCH_KW)
+        torch.cuda.synchronize()
+        counts["fused", shadows] = [c.launches for c in counters]
+        say(phase, f"render_frame4(fused=True) x10 shadows={shadows}: "
+            f"launches fused/planes/touched/shade "
+            f"{counts['fused', shadows]}")
+        check(counts["fused", shadows] == [10, 0, 0, 0],
+              "the fused frame did not launch the fused kernel once a frame")
     return counts
 
 
@@ -931,6 +976,463 @@ def pt_bounds(tp):
     }
 
 
+# --------------------------------------------------- streaming world, sparse
+
+# config4ck's strip (benchmarks/run.py:586-633): NX x NY x NZ chunks at
+# window cells (i, j, k + (W - NZ) // 2), streamed column by column
+NX, NY, NZ = 32, 3, 8
+STRIP_SEED = 7
+N_PREFILL = 8
+N_STREAM = 23          # columns streamed after the prefill (config4ck)
+FRAMES_PER_COL = 4
+W40_COLS = 21          # columns installed at W=40: the last window half full
+N_STRIP_CAMS = 13
+CHECK_EVERY = 8        # streamed frames between kernel-vs-plain checks
+STEP_CHUNKS = 128      # chunks a streaming step installs (config4b)
+N_STEPS = 8
+MIN_HIT = 0.10         # share of a fly-through frame's pixels that must hit
+STATIC_FX = 8.0        # the static W=80 frame's camera, in chunks along x
+
+
+def strip_grids():
+    """Demo terrain of the strip (seed 7, height scale 80, sea level 40),
+    generated in 8x8x8-chunk blocks along x, keeping the NY lowest chunk
+    layers: {(i, j, k): pack-id grid}."""
+    from voxelraytracing_tpu_torch.ops import noise
+    from voxelraytracing_tpu_torch.world.demo import demo_chunk_grids_host
+
+    perm = noise.make_permutation(STRIP_SEED)
+    out = {}
+    for bx in range(NX // 8):
+        grids, cells = demo_chunk_grids_host(perm, (bx * 8, 0, 0), 8, 80, 40)
+        for g, c in zip(grids, cells):
+            i, j, k = int(c % 8), int((c // 8) % 8), int(c // 64)
+            if j < NY:
+                out[bx * 8 + i, j, k] = g
+    return out
+
+
+def col_cells(strip, i, w):
+    """Strip column ``i`` -> (window-local cells, grids)."""
+    keys = [(i, j, k) for j in range(NY) for k in range(NZ)]
+    return ([(i, j, k + (w - NZ) // 2) for i, j, k in keys],
+            np.stack([strip[key] for key in keys]))
+
+
+def strip_builder(strip, w, cols, sparse, device="cuda"):
+    from voxelraytracing_tpu_torch.world.demo import demo_materials
+    from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
+
+    b = RenderGrid3Builder(w, demo_materials(), sparse=sparse, device=device)
+    for i in range(cols):
+        b.set_chunks(*col_cells(strip, i, w))
+    return b
+
+
+def strip_cam(fx, w, size=(WIDTH, HEIGHT)):
+    """A fly-through camera (the role of config4ck's cam_at): above the
+    strip's centre line at y=110, x = fx*32, 20 degrees down, looking
+    along +x."""
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+
+    z = ((w - NZ) // 2 + NZ // 2) * 32.0
+    return CamData.create((20.0, 270.0, 0.0), (fx * 32.0, 110.0, z), 70.0,
+                          size)
+
+
+def sparse_consistent(b, prep):
+    """Rows named by the window rows carry their subwindow's id or the
+    canonical stamp; a -1 lane is an empty subwindow. Returns the count of
+    bad lanes."""
+    from voxelraytracing_tpu_torch.world.render_grid import _CANON_STAMP
+
+    ns, nw = b.ns, b.nw
+    wm = prep.wmeta_pad[:, 0].cpu().numpy().view(np.uint32)
+    stamp = prep.sw_cont[:, 6, 8].cpu().numpy().view(np.uint32)
+    empty = ~b.s_any_solid & (b.s_all_liq | ~b.s_any_liq)
+    l = np.arange(64)
+    w = np.arange(nw ** 3)[:, None]
+    sids = ((w % nw * 4 + (l & 3)) + ((w // nw) % nw * 4 + ((l >> 2) & 3)) * ns
+            + (w // (nw * nw) * 4 + (l >> 4)) * ns * ns)
+    rows = wm[:, 64:]
+    has = rows != 0xFFFFFFFF
+    st = stamp[np.where(has, rows, 0).astype(np.int64)]
+    bad = has & (st != sids) & (st != _CANON_STAMP)
+    bad |= ~has & ~empty[sids]
+    return int(bad.sum()) + int((wm[:, 8:64] != 0).sum())
+
+
+def frame_kw(prep, cam, shadows, fused):
+    return dict(prepared=prep, with_flags=True, sun_pos=sun_of(cam),
+                shadows=shadows, **{**BENCH_KW, "fused": fused})
+
+
+def sparse_plain_check(rg, prep, lut, cam):
+    """Each sparse kernel on one frame vs its plain version: the fused
+    frame with and without the shadow leg, the state planes of the camera
+    rays and of the shadow bundle. Returns (differing words, largest
+    difference: fused channel / 255, planes)."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    bad, worst_f, worst_p = 0, 0, 0.0
+    for shadows in (False, True):
+        args, kw = frame_inputs(rg, prep, cam, lut, shadows=shadows)
+        img, fl = t4.march_fused4(*args, **kw)
+        rimg, rfl = t4.march_fused4_ref(*args, **kw)
+        bad += words_differ(img, rimg) + words_differ(fl, rfl)
+        worst_f = max(worst_f, int(channel_diff(img, rimg).max()))
+    p = split_parts(args, kw)
+    tables = (p["scal"], p["gw2"], p["swc"], p["wmp"])
+    for rays, got in (((), p["planes"]), (p["bundle"], p["shadow"])):
+        ref = t4.march_planes4_ref(*tables, *rays, **p["mdims"])
+        bad += sum(words_differ(x, y) for x, y in zip(got, ref))
+        worst_p = max(worst_p, max(float((got[k] - ref[k]).abs().max())
+                                   for k in (0, 2, 3)))
+    return bad, worst_f / 255.0, worst_p
+
+
+def phase_w40(strip, lut, phase):
+    """Sparse vs dense at W=40 (gs=1): same 21 columns in both builders."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    w = 40
+    t0 = time.perf_counter()
+    dense = strip_builder(strip, w, W40_COLS, sparse=False)
+    sparse = strip_builder(strip, w, W40_COLS, sparse=True)
+    pd, ps = dense.prepared(), sparse.prepared()
+    gd, gsp = dense.grid(), sparse.grid()
+    torch.cuda.synchronize()
+    gs = t4._world_dims(ps.sw_cont, ps.wmeta_pad, ps.ns)[2]
+    bad_lanes = sparse_consistent(sparse, ps)
+    say(phase, f"W={w} strip, {W40_COLS} columns ({W40_COLS * NY * NZ} "
+        f"chunks), nw={sparse.nw}, gs={gs}: both builders "
+        f"{time.perf_counter() - t0:.1f} s; dense sw_cont "
+        f"{pd.sw_cont.numel() * 4 / 1e6:.1f} MB, sparse tables "
+        f"{sparse.sparse_tables_mb():.1f} MB ({ps.sw_cont.shape[0]} rows, "
+        f"{int((sparse._sp_row >= 0).sum())} subwindows with a row); "
+        f"inconsistent index lanes {bad_lanes}")
+    check(gs == 1 and bad_lanes == 0, "W=40 sparse tables inconsistent")
+    cams = [strip_cam(1 + i, w) for i in range(N_STRIP_CAMS)]
+    bad = dict(fused=0, fused_shadow=0, split_shadow=0)
+    low_hit = []
+    for n, cam in enumerate(cams):
+        for name, shadows, fused in (("fused", False, True),
+                                     ("fused_shadow", True, True),
+                                     ("split_shadow", True, False)):
+            a = t4.render_frame4(gd, cam, lut, **frame_kw(pd, cam, shadows,
+                                                          fused))
+            c = t4.render_frame4(gsp, cam, lut, **frame_kw(ps, cam, shadows,
+                                                           fused))
+            bad[name] += words_differ(a[0], c[0]) + words_differ(a[1], c[1])
+        hit = float(((c[1] >> 1) & 1).float().mean())
+        if hit < MIN_HIT:
+            low_hit.append((n, hit))
+    say(phase, f"{len(cams)} cameras at {WIDTH}x{HEIGHT}, sparse vs dense "
+        f"token, differing words (flags + packed): {bad}; frames under "
+        f"{MIN_HIT:.0%} hit pixels: {low_hit}")
+    check(not any(bad.values()), "sparse frames differ from dense ones")
+    check(not low_hit, "a fly-through frame hits too little")
+    plain_bad, worst_f, worst_p = 0, 0.0, 0.0
+    for cam in (cams[0], cams[len(cams) // 2], cams[-1]):
+        b_, wf, wp = sparse_plain_check(gsp, ps, lut, cam)
+        plain_bad += b_
+        worst_f, worst_p = max(worst_f, wf), max(worst_p, wp)
+    say(phase, f"sparse kernels vs plain versions (fused, fused shadow, "
+        f"camera and bundle planes) on 3 cameras: differing words "
+        f"{plain_bad}")
+    check(plain_bad == 0, "a sparse kernel disagrees with its plain version")
+    counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4)
+    counts = {}
+    for fused in (True, False):
+        for c in counters:
+            c.launches = 0
+        for cam in cams[:10]:
+            t4.render_frame4(gsp, cam, lut, **frame_kw(ps, cam, True, fused))
+        torch.cuda.synchronize()
+        counts[fused] = [c.launches for c in counters]
+    say(phase, f"10 sparse shadowed frames: launches fused/planes/touched/"
+        f"shade, fused {counts[True]}, split {counts[False]}")
+    check(counts[True] == [10, 0, 0, 0] and counts[False] == [0, 20, 20, 10],
+          "sparse shadowed frames launched the wrong kernels")
+    # the same fused frame from both tokens, device time in turns: what the
+    # sparse mode's extra dependent load costs against the dense table
+    cam = cams[len(cams) // 2]
+    times = {}
+    for name, g, p in (("dense", gd, pd), ("sparse", gsp, ps),
+                       ("sparse ", gsp, ps), ("dense ", gd, pd)):
+        args, kw = frame_inputs(g, p, cam, lut, shadows=False)
+        times[name] = graph_ms(lambda i: t4.march_fused4(*args, **kw),
+                               N_ORBIT)
+    say(phase, f"fused kernel at {WIDTH}x{HEIGHT} on camera "
+        f"{len(cams) // 2}, device ms in turns (dense, sparse, sparse, "
+        f"dense): {[round(t, 4) for t in times.values()]}")
+    del dense, pd, gd
+    torch.cuda.empty_cache()
+    return dict(counts=counts, err_fused=worst_f, err_planes=worst_p,
+                times=times)
+
+
+def stream_window(strip, w, lut, check_every=0, phase=None):
+    """config4ck's loop on a fresh sparse builder: prefill, then stream
+    N_STREAM columns with FRAMES_PER_COL fused frames each, the token
+    carried. With ``check_every``, every so many frames the kernel is
+    held against its plain version (outside the timed sums). Returns the
+    builder, a summary and the host seconds of the builder and of the
+    frames."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    b = strip_builder(strip, w, N_PREFILL, sparse=True)
+    b.prepared()
+    torch.cuda.synchronize()
+    out = dict(frames=0, chunks=0, bad=0, checked=0, worst=0, low_hit=[],
+               builder_s=0.0, frames_s=0.0)
+    tok = None
+    fx = 1.0
+    for col in range(N_PREFILL, N_PREFILL + N_STREAM):
+        t0 = time.perf_counter()
+        cells, grids = col_cells(strip, col, w)
+        b.set_chunks(cells, grids)
+        b.prepared()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["chunks"] += len(cells)
+        out["builder_s"] += t1 - t0
+        for _ in range(FRAMES_PER_COL):
+            fx += 0.25
+            cam = strip_cam(fx, w)
+            t2 = time.perf_counter()
+            rg, prep = b.grid(), b.prepared()
+            img, fl, tok = t4.render_frame4(
+                rg, cam, lut, rounds=64, step_cap=500, steps_per_round=256,
+                prepared=prep, cache=tok, return_cache=True, fused=True,
+                with_flags=True)
+            torch.cuda.synchronize()
+            out["frames_s"] += time.perf_counter() - t2
+            out["frames"] += 1
+            if check_every and out["frames"] % check_every == 0:
+                args, kw = t4.frame_args(rg, cam, lut, prepared=prep,
+                                         rounds=64, steps_per_round=256,
+                                         step_cap=500)
+                rimg, rfl = t4.march_fused4_ref(*args, **kw)
+                out["bad"] += words_differ(img, rimg) + words_differ(fl, rfl)
+                out["worst"] = max(out["worst"],
+                                   int(channel_diff(img, rimg).max()))
+                out["checked"] += 1
+            hit = float(((fl >> 1) & 1).float().mean())
+            if hit < MIN_HIT:
+                out["low_hit"].append((out["frames"], hit))
+    out["token_rows"] = int(tok[0].shape[1])
+    return b, out
+
+
+def phase_w80(strip, mats, lut, phase):
+    """The 80-chunk fly-through, checked: launches, kernel vs plain every
+    8th frame, then the CPU builder and card vs CPU, and the other sparse
+    kernels vs their plain versions."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    w = 80
+    counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4)
+    for c in counters:
+        c.launches = 0
+    b, s = stream_window(strip, w, lut, check_every=CHECK_EVERY)
+    counts = [c.launches for c in counters]
+    prep = b.prepared()
+    gs = t4._world_dims(prep.sw_cont, prep.wmeta_pad, prep.ns)[2]
+    say(phase, f"W={w} sparse (nw={b.nw}, gs={gs}): {N_PREFILL} columns "
+        f"prefilled, {N_STREAM} streamed ({s['chunks']} chunks), "
+        f"{s['frames']} fused frames at {WIDTH}x{HEIGHT}, token rows "
+        f"{s['token_rows']}; launches fused/planes/touched/shade {counts}; "
+        f"kernel vs plain on {s['checked']} frames: differing words "
+        f"{s['bad']}; frames under {MIN_HIT:.0%} hit pixels: {s['low_hit']}; "
+        f"sparse tables {b.sparse_tables_mb():.1f} MB")
+    check(gs == 2 and s["token_rows"] == 3, "W=80 world or token shape")
+    check(counts == [s["frames"], 0, 0, 0],
+          "the fly-through did not launch the fused kernel once a frame")
+    check(s["bad"] == 0 and s["checked"] > 0,
+          "the sparse kernel disagrees with its plain version at W=80")
+    check(not s["low_hit"], "a fly-through frame hits too little")
+    check(sparse_consistent(b, prep) == 0, "W=80 sparse tables inconsistent")
+
+    cpu = strip_builder(strip, w, N_PREFILL, sparse=True, device="cpu")
+    cpu.prepared()
+    for col in range(N_PREFILL, N_PREFILL + N_STREAM):
+        cpu.set_chunks(*col_cells(strip, col, w))
+        cpu.prepared()  # as often as the card's builder: same row order
+    cprep = cpu.prepared()
+    same = (torch.equal(cprep.sw_cont, prep.sw_cont.cpu())
+            and torch.equal(cprep.wmeta_pad, prep.wmeta_pad.cpu()))
+    hit_bad = vox_bad = within = total = words = 0
+    for fx in (2.0, 9.0, 16.0, 23.0):
+        cam = strip_cam(fx, w, (320, 180))
+        kw = dict(rounds=64, steps_per_round=256, step_cap=500,
+                  with_flags=True, fused=True, sun_pos=sun_of(cam))
+        img, fl = t4.render_frame4(b.grid(), cam, mats.color, prepared=prep,
+                                   **kw)
+        rimg, rfl = t4.render_frame4(cpu.grid(), cam, mats.color,
+                                     prepared=cprep, **kw)
+        img, fl = img.cpu(), fl.cpu()
+        hit, rhit = (fl >> 1) & 1, (rfl >> 1) & 1
+        hit_bad += int((hit != rhit).sum())
+        both = (hit & rhit) != 0
+        vox_bad += int((((fl >> 17) & 255) != ((rfl >> 17) & 255))[both].sum())
+        within += int((channel_diff(img, rimg) <= 2).sum())
+        total += img.numel()
+        words += words_differ(img, rimg) + words_differ(fl, rfl)
+    say(phase, f"the same installs in a CPU builder: tables equal {same}; "
+        f"4 cameras at 320x180, card vs CPU: hit mismatches {hit_bad}, "
+        f"voxel mismatches {vox_bad}, pixels within 2/255 "
+        f"{within / total:.6f} (differing words {words})")
+    check(same and hit_bad == 0 and vox_bad == 0 and within == total,
+          "W=80 card vs CPU misses the cross-platform bar")
+    plain_bad, worst_f, worst_p = sparse_plain_check(
+        b.grid(), prep, lut, strip_cam(STATIC_FX, w))
+    say(phase, f"sparse kernels vs plain versions (fused, fused shadow, "
+        f"camera and bundle planes) on a W={w} frame: differing words "
+        f"{plain_bad}")
+    check(plain_bad == 0, "a sparse kernel disagrees at W=80")
+    return b, dict(launches=counts[0], err=max(s["worst"] / 255.0, worst_f),
+                   err_planes=worst_p)
+
+
+def time_streaming_step(strip, w, sparse):
+    """Median seconds of one streaming step (set_chunks + prepared of
+    STEP_CHUNKS chunks, config4b's cells) after 2 settling steps."""
+    from voxelraytracing_tpu_torch.world.demo import demo_materials
+    from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
+
+    grids = np.stack([strip[i, 1, k] for i in range(16) for k in range(8)])
+    b = RenderGrid3Builder(w, demo_materials(), sparse=sparse)
+
+    def step(col):
+        cells = [((col + i) % w, 1, k % w) for i in range(16)
+                 for k in range(8)]
+        b.set_chunks(cells, grids)
+        b.prepared()
+        torch.cuda.synchronize()
+
+    step(0)
+    for n in range(2):
+        step(2 + 2 * n)
+    times = []
+    col = 6
+    for _ in range(N_STEPS):
+        col = (col + 2) % (w - 2)
+        t0 = time.perf_counter()
+        step(col)
+        times.append(time.perf_counter() - t0)
+    mb = (b.sparse_tables_mb() if sparse else
+          sum(t.numel() for t in b.prepared()) * 4 / 1e6)
+    return statistics.median(times), mb
+
+
+def sparse_hit_rows(prep, origins, dirs, t, hit):
+    """Distinct content rows and window rows (sparse tables) holding the
+    hit points ``origins + dirs * t`` of the rays where ``hit``."""
+    v = torch.floor((origins + dirs * t[..., None])[hit]).to(torch.int64)
+    nw = round(prep.wmeta_pad.shape[0] ** (1 / 3))
+    win = (v[:, 0] >> 6) + (v[:, 1] >> 6) * nw + (v[:, 2] >> 6) * nw * nw
+    s_loc = (((v[:, 0] >> 4) & 3) + ((v[:, 1] >> 4) & 3) * 4
+             + ((v[:, 2] >> 4) & 3) * 16)
+    rows = prep.wmeta_pad[win, 0, 64 + s_loc]
+    return int(torch.unique(rows).numel()), int(torch.unique(win).numel())
+
+
+def time_sparse(strip, b, lut, phase):
+    """Phase 18: streaming steps, the fly-through, the sparse kernels on a
+    static W=80 frame (device time, plain version, least time, rows)."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    out = {}
+    for w, sparse in ((30, False), (80, True)):
+        dt, mb = time_streaming_step(strip, w, sparse)
+        out[f"step_{w}"] = dt
+        say(phase, f"streaming step W={w} {'sparse' if sparse else 'dense'}: "
+            f"set_chunks + prepared of {STEP_CHUNKS} chunks, median of "
+            f"{N_STEPS}: {dt * 1e3:.3f} ms ({STEP_CHUNKS / dt:.1f} chunks/s); "
+            f"tables {mb:.1f} MB")
+        torch.cuda.empty_cache()
+    wins = []
+    for _ in range(WINDOWS):
+        _, s = stream_window(strip, 80, lut)
+        wins.append(s)
+    tot = [s["builder_s"] + s["frames_s"] for s in wins]
+    k = sorted(range(WINDOWS), key=lambda i: tot[i])[WINDOWS // 2]
+    s = wins[k]
+    out["fly_fps"] = s["frames"] / tot[k]
+    out["fly_ms"] = 1e3 * tot[k] / s["frames"]
+    say(phase, f"W=80 fly-through ({s['frames']} frames at {WIDTH}x{HEIGHT}, "
+        f"{s['chunks']} chunks streamed), median of {WINDOWS} windows: "
+        f"{out['fly_fps']:.3f} frames/s, {out['fly_ms']:.3f} ms/frame; of "
+        f"it builder (set_chunks + prepared) {1e3 * s['builder_s'] / s['frames']:.3f}"
+        f" ms/frame, frames (render_frame4, host clock to synchronize) "
+        f"{1e3 * s['frames_s'] / s['frames']:.3f} ms/frame; windows "
+        f"{[round(x, 3) for x in tot]} s")
+
+    prep = b.prepared()
+    rg = b.grid()
+    cam = strip_cam(STATIC_FX, 80)
+    for shadows, key in ((False, "fused"), (True, "fused_shadow")):
+        args, kw = frame_inputs(rg, prep, cam, lut, shadows=shadows)
+        time_kernel(out, key, lambda i: t4.march_fused4(*args, **kw))
+        out["plain_" + key] = plain_ms(lambda: t4.march_fused4_ref(*args,
+                                                                   **kw))
+    fl = t4.march_fused4(*args, **{**kw, "shadows": False})[1]
+    p = split_parts(args, kw)
+    sc, g, swc, wmp, dims = p["scal"], p["gw2"], p["swc"], p["wmp"], p["mdims"]
+    time_kernel(out, "planes_camera",
+                lambda i: t4.march_planes4(sc, g, swc, wmp, **dims))
+    time_kernel(out, "planes_rays", lambda i: t4.march_planes4(
+        sc, g, swc, wmp, *p["bundle"], **dims))
+    out["plain_planes"] = plain_ms(
+        lambda: t4.march_planes4_ref(sc, g, swc, wmp, **dims)) + plain_ms(
+        lambda: t4.march_planes4_ref(sc, g, swc, wmp, *p["bundle"], **dims))
+    px = WIDTH * HEIGHT
+    steps_p = int(((p["planes"][1] >> 5) & 0xFFF).sum())
+    steps_s = int(((p["shadow"][1] >> 5) & 0xFFF).sum())
+    sf = [float(x) for x in sc.cpu().numpy()]
+    rays = t4._camera_rays(sf, *t4._pixels(p["dims"]["height"],
+                                           p["dims"]["width"], sc.device))
+    shape = p["planes"][0].shape + (3,)
+    rows, wins_ = sparse_hit_rows(
+        prep, torch.stack(rays[:3], -1).reshape(shape),
+        torch.stack(rays[3:], -1).reshape(shape), p["planes"][0],
+        ((fl >> 1) & 1) != 0)
+    srows, swins = sparse_hit_rows(prep, p["bundle"][0], p["bundle"][1],
+                                   p["shadow"][0],
+                                   ((p["shadow"][1] >> 1) & 1) != 0)
+    wrow = 128 * 4
+    out["bounds"] = {
+        "fused": bound(rows * ROW_BYTES + wins_ * wrow + 8 * px,
+                       steps_p * STEP_OPS + px * PIXEL_OPS),
+        "fused_shadow": bound((rows + srows) * ROW_BYTES
+                              + (wins_ + swins) * wrow + 8 * px,
+                              (steps_p + steps_s) * STEP_OPS
+                              + px * PIXEL_OPS),
+        "planes": bound((rows + srows) * ROW_BYTES + (wins_ + swins) * wrow
+                        + 16 * px + 41 * px,
+                        (steps_p + steps_s) * STEP_OPS + px * (45 + 21)),
+    }
+    out["rows"] = (rows, wins_, srows, swins)
+    out["steps"] = (steps_p, steps_s)
+    out["tables_mb"] = b.sparse_tables_mb()
+    say(phase, f"static W=80 frame (x={STATIC_FX * 32:.0f}, 31 columns): "
+        f"primary steps "
+        f"{steps_p}, shadow steps {steps_s}; rows holding hit points: "
+        f"content {rows}, window {wins_} (shadow leg {srows}, {swins}); "
+        f"sparse tables {out['tables_mb']:.1f} MB")
+    for k_, dev_keys in (("fused", ("fused",)),
+                         ("fused_shadow", ("fused_shadow",)),
+                         ("planes", ("planes_camera", "planes_rays"))):
+        ms = sum(out[x + "_dev"] for x in dev_keys)
+        plain = out["plain_" + k_]
+        bms, by = out["bounds"][k_]
+        say(phase, f"W=80 sparse {k_}: {ms:.4f} ms on the device "
+            f"({' + '.join(f'{out[x]:.4f}' for x in dev_keys)} ms a wrapper "
+            f"call), plain {plain:.2f} ms, least {bms:.5f} ms, bound by {by}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -977,8 +1479,8 @@ def main():
         s, o = bench_cams(v, *size)
         errs[size] = compare_shadows(rg, prep, lut, [s] + o, 7)
     compare_on_cpu(rg_cpu, rg, mats, v, 8, shadows=True)
-    counts = count_main_path(rg, mats, v, 9)
-    t8 = time_primary(rg, prep, lut, v, 10)
+    counts = count_main_path(rg, mats, v)
+    t8 = time_primary(rg, prep, lut, mats, v, 10)
     ts = {size: time_shadows(rg, prep, lut, v, size, 10) for size in SIZES}
 
     t0 = time.perf_counter()
@@ -990,7 +1492,7 @@ def main():
         f"{prep16.sw_cont.numel() * 4 / 1e6:.1f} MB")
     s16, o16 = bench_cams(v16, WIDTH, HEIGHT, N_ORBIT_16)
     err = max(err, compare_on_card(rg16, prep16, lut, [s16] + o16, 4))
-    time_primary(rg16, prep16, lut, v16, 11, N_ORBIT_16)
+    time_primary(rg16, prep16, lut, mats, v16, 11, N_ORBIT_16)
     del rg16, prep16
     torch.cuda.empty_cache()
 
@@ -1006,6 +1508,17 @@ def main():
     pt_counts = count_pt_main_path(rg, mats, orbit[:10], 14)
     tp = time_pt(rg, mats, static, orbit, 15)
     del worlds, cpu_worlds, rg, prep, rg_cpu
+    torch.cuda.empty_cache()
+
+    # the streamed strip: sparse vs dense at W=40, the W=80 fly-through
+    t0 = time.perf_counter()
+    strip = strip_grids()
+    say(16, f"strip terrain: {len(strip)} chunks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    w40 = phase_w40(strip, lut, 16)
+    b80, w80 = phase_w80(strip, mats, lut, 17)
+    tsp = time_sparse(strip, b80, lut, 18)
+    del b80
     torch.cuda.empty_cache()
 
     px = WIDTH * HEIGHT
@@ -1034,18 +1547,18 @@ def main():
     kernels = [
         dict(name="march_fused4", source=src + "march4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:185",
-             launches=counts[False][0], max_abs_err=err,
+             launches=counts["fused", False][0], max_abs_err=err,
              ms=t8["kernel_static_dev"], plain_ms=t8["plain_static"],
              bound=b_primary),
         dict(name="march_fused4_shadow", source=src + "march4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:1280",
-             launches=counts[True][0],
+             launches=counts["fused", True][0],
              max_abs_err=max(e["fused"] for e in errs.values()),
              ms=sh["fused_kernel_static_dev"], plain_ms=sh["plain_fused"],
              bound=b_fused),
         dict(name="march_planes4", source=src + "planes4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:1399",
-             launches=counts["split"][1],
+             launches=counts["packed", True][1],
              max_abs_err=max(e["planes"] for e in errs.values()),
              ms=sh["planes_camera_dev"] + sh["planes_rays_dev"],
              plain_ms=sh["plain_planes_camera"] + sh["plain_planes_rays"],
@@ -1053,14 +1566,14 @@ def main():
                     max(b_cam, b_rays)[1])),
         dict(name="touched4", source=src + "planes4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront4.py:892",
-             launches=counts["split"][2],
+             launches=counts["packed", True][2],
              max_abs_err=max(e["marks"] for e in errs.values()),
              ms=sh["touched_camera_dev"] + sh["touched_rays_dev"],
              plain_ms=sh["plain_touched_camera"] + sh["plain_touched_rays"],
              bound=(b_tcam[0] + b_trays[0], max(b_tcam, b_trays)[1])),
         dict(name="shade4", source=src + "shade4.cu",
              replaces="voxelraytracing_tpu/ops/wavefront3.py:1909",
-             launches=counts["split"][3],
+             launches=counts["packed", True][3],
              max_abs_err=max(e["shade"] for e in errs.values()),
              ms=sh["shade_dev"], plain_ms=sh["plain_shade"], bound=b_shade),
         dict(name="matfetch4", source=src + "matfetch4.cu",
@@ -1073,6 +1586,23 @@ def main():
              launches=pt_counts["fused"][3], max_abs_err=pt_err,
              ms=tp["pt4_dev"], plain_ms=tp["plain_pt4"], bound=bp["pt4"]),
     ]
+    rep = "voxelraytracing_tpu/ops/wavefront4.py:747"
+    kernels += [
+        dict(name="march_fused4_sparse", source=src + "march4.cu",
+             replaces=rep, launches=w80["launches"], max_abs_err=w80["err"],
+             ms=tsp["fused_dev"], plain_ms=tsp["plain_fused"],
+             bound=tsp["bounds"]["fused"]),
+        dict(name="march_fused4_shadow_sparse", source=src + "march4.cu",
+             replaces=rep, launches=w40["counts"][True][0],
+             max_abs_err=w40["err_fused"], ms=tsp["fused_shadow_dev"],
+             plain_ms=tsp["plain_fused_shadow"],
+             bound=tsp["bounds"]["fused_shadow"]),
+        dict(name="march_planes4_sparse", source=src + "planes4.cu",
+             replaces=rep, launches=w40["counts"][False][1],
+             max_abs_err=max(w40["err_planes"], w80["err_planes"]),
+             ms=tsp["planes_camera_dev"] + tsp["planes_rays_dev"],
+             plain_ms=tsp["plain_planes"], bound=tsp["bounds"]["planes"]),
+    ]
     line = []
     for k in kernels:
         (bms, by) = k.pop("bound")
@@ -1082,7 +1612,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=None))
     print(json.dumps({"kernels": line}))
-    say(16, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(19, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -204,14 +204,15 @@ def test_fused_frame_world_min_offset(world):
 
 
 def test_render_packed_matches_jax(world):
-    """WavefrontRenderer end to end: the JAX renderer's v4 path (split
-    march | shade, bit-identical to fused in the JAX tests) vs the port's
-    fused frame, over two frames so the warm token is carried."""
+    """WavefrontRenderer end to end on its v4 route (split march | shade)
+    in both packages, over two frames so the warm token is carried; the
+    fused frame's flags say which pixels are sky (cameras inside the
+    world, where split and fused frames agree)."""
     jrg, trg, mats, _ = world
     s_j = JRenderSettings(sun_pos=(1000.0, 2500.0, 500.0))
     s_t = RenderSettings(sun_pos=(1000.0, 2500.0, 500.0))
     jr = JWavefrontRenderer(mats, tracer="v4")
-    tr = WavefrontRenderer(mats)
+    tr = WavefrontRenderer(mats, tracer="v4")
     for cfg in CAMS[1:3]:
         a = np.asarray(jr.render_packed(
             jrg, JCamData.create(cfg[0], cfg[1], 70.0, SIZE), s_j))

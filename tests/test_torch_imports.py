@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax():
     assert len(mods) >= 18, mods
     assert {"voxelraytracing_tpu_torch.ops.prng",
             "voxelraytracing_tpu_torch.ops.pathtrace3",
-            "voxelraytracing_tpu_torch.ops.pathtrace4"} <= set(mods)
+            "voxelraytracing_tpu_torch.ops.pathtrace4",
+            "voxelraytracing_tpu_torch.world.render_grid"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -85,6 +86,12 @@ def test_wrapper_refuses_other_devices():
     plane = torch.empty(8, 16, **meta)
     with pytest.raises(ValueError, match="cuda or cpu"):
         t4.shade4(args[0], args[2], plane, plane.int(), plane, plane, None)
+    for sparse_ns in (0, 4):  # the sparse instantiations too
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            t4.march_fused4(*args, height=8, width=16, sparse_ns=sparse_ns)
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            t4.march_planes4(args[0], args[1], *args[3:], height=8, width=16,
+                             sparse_ns=sparse_ns)
 
 
 def test_entry_points_default_to_the_card():
@@ -95,10 +102,12 @@ def test_entry_points_default_to_the_card():
 
     from voxelraytracing_tpu_torch import convert
     from voxelraytracing_tpu_torch.ops import camera, wavefront3
+    from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
 
     for fn in (wavefront3.build_render_grid3_host,
                convert.render_grid3_from_numpy, convert.prepared_from_numpy,
-               camera.generate_rays_raw, camera.generate_rays):
+               convert.prepared_sparse_from_numpy, camera.generate_rays_raw,
+               camera.generate_rays, RenderGrid3Builder):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused frame (with and without the shadow leg), the state-plane
-march and its start marks (camera rays and per-ray bundles), the split
-shade and the material fetch, each equal word for word; the one-launch
+march and its start marks (camera rays and per-ray bundles), their
+sparse-table instantiations (on the 4-chunk demo world and a 34-chunk
+scene), the split shade and the material fetch, each equal word for
+word; sparse frames equal to dense ones; the one-launch
 path tracer, equal where nothing is drawn and within the path-tracing bar
 elsewhere, and equal to the v4 path-tracing route where nothing is drawn;
 each wrapper refusing a wrong dtype or shape.
@@ -352,3 +354,115 @@ def test_pt_kernels_reject_bad_inputs(pt_worlds):
         p4.pt4(scal.cpu(), gw2, mlut, swc, wmp, **kw)
     with pytest.raises(ValueError, match="samples"):
         p4.pt4(scal, gw2, mlut, swc, wmp, **{**kw, "samples": 0})
+
+
+# ----------------------------------------------------------- sparse tables
+
+# tests/test_supercell.py:139-177: a 34-chunk window (gs=1), terrain
+# islands at opposite corners and a floating water cube; most of its
+# windows never get a chunk, so their subwindows have no content row
+W34_CELLS = [(0, 0, 0), (1, 0, 0), (0, 0, 1), (1, 0, 1), (32, 0, 32),
+             (33, 0, 33), (16, 8, 16)]
+W34_CAMS = [
+    ((35.0, 45.0, 0.0), (20.0, 60.0, 20.0)),
+    ((14.5, 225.0, 0.0), (10.0, 400.0, 10.0)),
+    ((70.0, 10.0, 0.0), (528.0, 400.0, 500.0)),
+    ((4.2, 45.0, 0.0), (1080.0, 120.0, 1080.0)),
+]
+
+
+@pytest.fixture(scope="module")
+def sparse_worlds(card_world):
+    """Streaming builders on the card with sparse tables: the W=4 demo
+    world (and its dense twin) and the W=34 scene."""
+    from voxelraytracing_tpu_torch.world import demo
+    from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
+
+    mats = demo_materials()
+    grids, cells = demo_chunk_grids_host(
+        noise.make_permutation(7), np.zeros(3, np.int64), 4, 4 * 32 * 0.45,
+        int(4 * 32 * 0.28))
+    cell_xyz = [(int(c % 4), int((c // 4) % 4), int(c // 16)) for c in cells]
+    out = {}
+    for sparse in (True, False):
+        b = RenderGrid3Builder(4, mats, sparse=sparse, device="cuda")
+        b.set_chunks(cell_xyz, grids)
+        out["w4", sparse] = b
+    terrain = np.zeros((32, 32, 32), np.int32)
+    terrain[:, :12, :] = demo.STONE
+    terrain[:, 12:14, :] = demo.EARTH
+    terrain[:, 14, :] = demo.GRASS
+    water = np.full((32, 32, 32), demo.WATER, np.int32)
+    b = RenderGrid3Builder(34, mats, sparse=True, device="cuda")
+    b.set_chunks(W34_CELLS, np.stack([terrain] * 6 + [water]))
+    out["w34", True] = b
+    return out, mats
+
+
+def _sparse_cams(world, size):
+    cams = CAMS if world == "w4" else W34_CAMS
+    return [CamData.create(r, e, 70.0, size) for r, e in cams]
+
+
+@pytest.mark.parametrize("world", ["w4", "w34"])
+@pytest.mark.parametrize("shadows", [False, True])
+def test_sparse_fused_kernel_equals_plain_version(sparse_worlds, world,
+                                                  shadows):
+    """The sparse instantiation of the fused kernel (with and without the
+    shadow leg), one launch a call, word for word its plain version."""
+    builders, mats = sparse_worlds
+    b = builders[world, True]
+    for cam in _sparse_cams(world, (200, 120)):
+        args, kw = t4.frame_args(b.grid(), cam, mats.color,
+                                 prepared=b.prepared(), step_cap=2000,
+                                 sun_pos=SUN, shadows=shadows)
+        assert kw["sparse_ns"] == b.ns
+        before = t4.march_fused4.launches
+        img, fl = t4.march_fused4(*args, **kw)
+        torch.cuda.synchronize()
+        assert t4.march_fused4.launches == before + 1
+        rimg, rfl = t4.march_fused4_ref(*args, **kw)
+        assert torch.equal(fl, rfl) and torch.equal(img, rimg)
+
+
+@pytest.mark.parametrize("world", ["w4", "w34"])
+@pytest.mark.parametrize("bundle", [False, True])
+def test_sparse_planes_kernel_equals_plain_version(sparse_worlds, world,
+                                                   bundle):
+    """The sparse instantiation of the state-plane march on camera rays
+    and on the frame's shadow bundle, word for word its plain version."""
+    builders, mats = sparse_worlds
+    b = builders[world, True]
+    for cam in _sparse_cams(world, (200, 120)):
+        args, kw = t4.frame_args(b.grid(), cam, mats.color,
+                                 prepared=b.prepared(), step_cap=2000,
+                                 sun_pos=SUN)
+        scal, gw2, _, swc, wmp = args
+        dims = dict(height=kw["height"], width=kw["width"],
+                    sparse_ns=kw["sparse_ns"])
+        rays = ()
+        if bundle:
+            ts, fl, _, _ = t4.march_planes4_ref(scal, gw2, swc, wmp, **dims)
+            rays = t4._shadow_prep4(ts, fl, scal.cpu().numpy())
+        before = t4.march_planes4.launches
+        got = t4.march_planes4(scal, gw2, swc, wmp, *rays, **dims)
+        torch.cuda.synchronize()
+        assert t4.march_planes4.launches == before + 1
+        ref = t4.march_planes4_ref(scal, gw2, swc, wmp, *rays, **dims)
+        assert all(_same_bits(x, y) for x, y in zip(got, ref))
+
+
+def test_sparse_frames_equal_dense_on_the_card(sparse_worlds):
+    """Fused, fused-shadowed and split-shadowed frames of the W=4 world
+    from the sparse token equal the dense token's, flags too."""
+    builders, mats = sparse_worlds
+    sp, dn = builders["w4", True], builders["w4", False]
+    for cam in _sparse_cams("w4", (200, 120)):
+        for fused, shadows in ((True, False), (True, True), (False, True)):
+            kw = dict(with_flags=True, step_cap=500, sun_pos=SUN,
+                      fused=fused, shadows=shadows)
+            a = t4.render_frame4(sp.grid(), cam, mats.color,
+                                 prepared=sp.prepared(), **kw)
+            c = t4.render_frame4(dn.grid(), cam, mats.color,
+                                 prepared=dn.prepared(), **kw)
+            assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])

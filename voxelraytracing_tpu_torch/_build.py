@@ -33,11 +33,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, or ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     "march4": {
-        "march_fused4_launch": (_I, [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
+        "march_fused4_launch": (_I, [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     },
     "planes4": {
         "touched4_launch": (_I, [_P] * 5 + [_I] * 2 + [_P]),
-        "march_planes4_launch": (_I, [_P] * 12 + [_I] * 5 + [_P]),
+        "march_planes4_launch": (_I, [_P] * 12 + [_I] * 6 + [_P]),
     },
     "shade4": {
         "shade4_launch": (_I, [_P] * 8 + [_I] * 3 + [_F, _P]),

@@ -10,7 +10,7 @@ CPU), so one world can feed both packages.
 import numpy as np
 
 from .ops.wavefront3 import RenderGrid3, _i32
-from .ops.wavefront4 import PreparedGrid4
+from .ops.wavefront4 import PreparedGrid4, PreparedGrid4Sparse
 
 
 def render_grid3_from_numpy(gw_jump, gw_liq, wmeta, sw_meta, sw_solid,
@@ -34,3 +34,10 @@ def prepared_from_numpy(sw_cont, wmeta_pad, *, device="cuda"):
     """JAX ``PreparedGrid4`` tables (uint32 arrays) -> the port's."""
     return PreparedGrid4(_i32(np.asarray(sw_cont), device),
                          _i32(np.asarray(wmeta_pad), device))
+
+
+def prepared_sparse_from_numpy(sw_cont, wmeta_pad, ns, *, device="cuda"):
+    """JAX ``PreparedGrid4Sparse`` tables (uint32 arrays) and its ``ns``
+    -> the port's."""
+    return PreparedGrid4Sparse(_i32(np.asarray(sw_cont), device),
+                               _i32(np.asarray(wmeta_pad), device), int(ns))

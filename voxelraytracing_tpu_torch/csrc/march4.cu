@@ -27,6 +27,15 @@
 // head for the same sun, so they stay coherent too. The shadow leg is a
 // template switch, so the unshadowed frame keeps its own registers. No
 // TMA, wgmma or shared-memory staging of the tables yet.
+//
+// The sparse mode of the TPU kernel (`sparse=True`, :747-806) is the
+// other template switch: sparse tables (PreparedGrid4Sparse) hold content
+// rows only for non-jump subwindows, and each subwindow's row index sits
+// in lanes 64-127 of its window's meta row, which the march reads anyway
+// (march4_common.cuh content_row). On the TPU the index rides the cached
+// window row into the serve; here it costs one dependent load before the
+// subwindow's brick meta, and the 80-chunk world's tables shrink from
+// ~15 GB to tens of MB.
 
 #include "march4_common.cuh"
 
@@ -34,7 +43,7 @@ namespace {
 
 using namespace v4;
 
-template <bool kShadows>
+template <bool kShadows, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 march_fused4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
                     const float* __restrict__ lut, const int* __restrict__ sw_cont,
@@ -59,8 +68,9 @@ march_fused4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
 
   // ---- primary leg: a whole tile inside the frame, camera strictly in the world
   const bool in_w0 = s[0] > 0.0f && s[0] < v && s[1] > 0.0f && s[1] < v && s[2] > 0.0f && s[2] < v;
-  const Leg c = march_leg(w, r, tile_valid(s, px, py) && in_w0 && 0 < step_cap, step_cap);
-  const int vox = c.hit ? decode_vox(w, r, c.t) : 0;
+  const Leg c =
+      march_leg<kSparse>(w, r, tile_valid(s, px, py) && in_w0 && 0 < step_cap, step_cap);
+  const int vox = c.hit ? decode_vox<kSparse>(w, r, c.t) : 0;
 
   // ---- shadow leg (_shadow_prep4 op order): rebase the hit point along
   // the face normal, aim at the sun position (scal 34-36), re-march
@@ -78,7 +88,7 @@ march_fused4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
     const float sn = sqrtf(svx * svx + svy * svy + svz * svz);
     const Ray sr = make_ray(hx, hy, hz, svx / sn, svy / sn, svz / sn, v);
     const bool ins0 = hx > 0.0f && hx < v && hy > 0.0f && hy < v && hz > 0.0f && hz < v;
-    if (march_leg(w, sr, ins0, step_cap).hit) shm = s[37];
+    if (march_leg<kSparse>(w, sr, ins0, step_cap).hit) shm = s[37];
   }
 
   // ---- shade (the open water interval closes at t)
@@ -90,24 +100,29 @@ march_fused4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
   flags[o] = encode_flags(c.hit, c.axm, c.stp, vox, dx, dy, dz);
 }
 
+template <bool kShadows, bool kSparse>
+void launch(dim3 grid, cudaStream_t stream, const float* scal, const int* gw2, const float* lut,
+            const int* sw_cont, const int* wmeta_pad, int* packed, int* flags, int height,
+            int width, int nw, int ns, int gs, int show_steps, float max_steps) {
+  march_fused4_kernel<kShadows, kSparse><<<grid, kThreads, 0, stream>>>(
+      scal, gw2, lut, sw_cont, wmeta_pad, packed, flags, height, width, nw, ns, gs, show_steps,
+      max_steps);
+}
+
 }  // namespace
 
-// Launch one frame on `stream`; `shadows` selects the shadow leg. Returns
-// cudaGetLastError() after the launch (0 = cudaSuccess); the caller raises
-// on anything else.
+// Launch one frame on `stream`; `shadows` selects the shadow leg, `sparse`
+// the sparse-table instantiation. Returns cudaGetLastError() after the
+// launch (0 = cudaSuccess); the caller raises on anything else.
 extern "C" int march_fused4_launch(const float* scal, const int* gw2, const float* lut,
                                    const int* sw_cont, const int* wmeta_pad, int* packed,
                                    int* flags, int height, int width, int nw, int ns, int gs,
-                                   int show_steps, float max_steps, int shadows,
+                                   int show_steps, float max_steps, int shadows, int sparse,
                                    cudaStream_t stream) {
   const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
-  if (shadows)
-    march_fused4_kernel<true><<<grid, kThreads, 0, stream>>>(
-        scal, gw2, lut, sw_cont, wmeta_pad, packed, flags, height, width, nw, ns, gs, show_steps,
-        max_steps);
-  else
-    march_fused4_kernel<false><<<grid, kThreads, 0, stream>>>(
-        scal, gw2, lut, sw_cont, wmeta_pad, packed, flags, height, width, nw, ns, gs, show_steps,
-        max_steps);
+  auto fn = shadows ? (sparse ? launch<true, true> : launch<true, false>)
+                    : (sparse ? launch<false, true> : launch<false, false>);
+  fn(grid, stream, scal, gw2, lut, sw_cont, wmeta_pad, packed, flags, height, width, nw, ns, gs,
+     show_steps, max_steps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,17 @@
 //   lut       f32[6,128]: color rows r0 r1 g0 g1 b0 b1 (row pair = ids
 //             0-127 | 128-255)
 //   sw_cont   [Ns^3,7,128]: rows solid | liquid | pid0..3 | interleaved
-//             brick meta (words 0-3) + palette (words 4-7)
-//   wmeta_pad [Nw^3,1,128]: interleaved subwindow meta (words 0-3)
+//             brick meta (words 0-3) + palette (words 4-7); sparse tables
+//             hold [R,7,128] content rows (subwindow id at meta word 8)
+//   wmeta_pad [Nw^3,1,128]: interleaved subwindow meta (words 0-3); sparse
+//             tables add the content row of local subwindow s = sx + sy*4
+//             + sz*16 at word 64 + s (-1: no row, an empty subwindow)
 //   per-pixel planes and outputs: [height, width] in image order
+//
+// The table mode is a template switch (kSparse) of march_leg and
+// decode_vox: a dense subwindow's row is its id, a sparse one's is read
+// from its window's meta row, one dependent load more a voxel-level step.
+// Row offsets are size_t: 80-chunk dense tables would pass 2^31 words.
 
 #pragma once
 
@@ -174,11 +182,32 @@ struct Leg {
   bool hit;
 };
 
+// The content row of the subwindow holding voxel (vx, vy, vz), local
+// subwindow s_loc of window wi: dense tables index it by subwindow id;
+// sparse tables read it from word 64 + s_loc of the window's meta row
+// (wavefront4.py sparse mode, :747-806). A sparse index of -1 gives
+// nullptr, never a read out of the table: there is no row for a jump
+// subwindow, nor for any subwindow of a window no chunk was ever
+// installed in (the builder leaves that window's meta at 0), and the
+// march reads such a subwindow as empty, which it is.
+template <bool kSparse>
+__device__ __forceinline__ const int* content_row(const World& w, int wi, int s_loc, int vx,
+                                                  int vy, int vz) {
+  if (kSparse) {
+    const int ridx = __ldg(w.wmeta_pad + static_cast<size_t>(wi) * kRow + 64 + s_loc);
+    return ridx < 0 ? nullptr : w.sw_cont + static_cast<size_t>(ridx) * (kSubRows * kRow);
+  }
+  const int sid = (vx >> 4) + (vy >> 4) * w.ns + (vz >> 4) * w.ns * w.ns;
+  return w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
+}
+
 // One march leg (wavefront4.py classify + step, for one ray) from
 // t = EPS_T: steps classified from position alone — global window
 // (super-cell) jump, subwindow jump from the window meta, brick skip from
 // the subwindow meta, else a voxel bit test — each advancing by the DDA
-// exit of its cell plus EPS_T, until hit, exit or stp >= step_cap.
+// exit of its cell plus EPS_T, until hit, exit or stp >= step_cap. A
+// sparse subwindow without a content row marches as an empty jump.
+template <bool kSparse = false>
 __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool active,
                                          int step_cap) {
   Leg c;
@@ -188,7 +217,7 @@ __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool acti
   c.stp = 0;
   c.axm = 0;
   c.hit = false;
-  const int gs = w.gs, nw = w.nw, ns = w.ns, nwg = w.nwg;
+  const int gs = w.gs, nw = w.nw, nwg = w.nwg;
   while (active) {
     const float pxf = r.ox + r.dx * c.t;
     const float pyf = r.oy + r.dy * c.t;
@@ -214,18 +243,22 @@ __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool acti
         cell = 16.0f;
         liquid = (sw & 2u) != 0;
       } else {
-        const int sid = (vx >> 4) + (vy >> 4) * ns + (vz >> 4) * ns * ns;
-        const int* row = w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
-        const int b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16;
-        const unsigned br = (ld(row + 6 * kRow + (b_loc >> 4)) >> ((b_loc & 15) * 2)) & 3u;
-        if (br & 1u) {                  // brick skip
-          cell = 4.0f;
-          liquid = (br & 2u) != 0;
-        } else {                        // voxel test
-          const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
-          hit_now = ((ld(row + (l >> 5)) >> (l & 31)) & 1u) != 0;
-          liquid = ((ld(row + kRow + (l >> 5)) >> (l & 31)) & 1u) != 0;
-          cell = 1.0f;
+        const int* row = content_row<kSparse>(w, wi, s_loc, vx, vy, vz);
+        if (kSparse && !row) {          // no sparse row: an empty subwindow
+          cell = 16.0f;
+          liquid = (sw & 2u) != 0;
+        } else {
+          const int b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16;
+          const unsigned br = (ld(row + 6 * kRow + (b_loc >> 4)) >> ((b_loc & 15) * 2)) & 3u;
+          if (br & 1u) {                // brick skip
+            cell = 4.0f;
+            liquid = (br & 2u) != 0;
+          } else {                      // voxel test
+            const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
+            hit_now = ((ld(row + (l >> 5)) >> (l & 31)) & 1u) != 0;
+            liquid = ((ld(row + kRow + (l >> 5)) >> (l & 31)) & 1u) != 0;
+            cell = 1.0f;
+          }
         }
       }
     }
@@ -252,13 +285,17 @@ __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool acti
   return c;
 }
 
-// Hit id at t: 4 palette-index bits + the subwindow palette byte.
+// Hit id at t: 4 palette-index bits + the subwindow palette byte, from
+// the hit subwindow's content row (0 if a sparse row is missing).
+template <bool kSparse = false>
 __device__ __forceinline__ int decode_vox(const World& w, const Ray& r, float t) {
   const int vx = static_cast<int>(floorf(r.ox + r.dx * t));
   const int vy = static_cast<int>(floorf(r.oy + r.dy * t));
   const int vz = static_cast<int>(floorf(r.oz + r.dz * t));
-  const int sid = (vx >> 4) + (vy >> 4) * w.ns + (vz >> 4) * w.ns * w.ns;
-  const int* row = w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
+  const int wi = kSparse ? (vx >> 6) + (vy >> 6) * w.nw + (vz >> 6) * w.nw * w.nw : 0;
+  const int s_loc = kSparse ? ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16 : 0;
+  const int* row = content_row<kSparse>(w, wi, s_loc, vx, vy, vz);
+  if (kSparse && !row) return 0;
   const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
   int pidx = 0;
   for (int b = 0; b < 4; ++b)

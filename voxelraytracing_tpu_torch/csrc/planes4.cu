@@ -31,7 +31,9 @@
 // bundle once more (25 bytes a ray) and does no march. Design: 16x8-pixel
 // tiles per 128-thread block, scalar row and pair plane in shared memory,
 // tables through the read-only path, planes in image order so a warp's
-// loads and stores are two contiguous 64-byte runs.
+// loads and stores are two contiguous 64-byte runs. Sparse tables (the
+// TPU kernel's sparse=True, :747-806) are a template switch of the march
+// (march4_common.cuh content_row); the marks read no tables and have none.
 
 #include "march4_common.cuh"
 
@@ -97,8 +99,8 @@ touched4_kernel(const float* __restrict__ scal, const float* __restrict__ origin
 }
 
 // Pass 2: march every ray of a superblock with a marked tile; pass the
-// start state of any other superblock through.
-template <bool kPerRay>
+// start state of any other superblock through. kSparse: sparse tables.
+template <bool kPerRay, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
                      const int* __restrict__ sw_cont, const int* __restrict__ wmeta_pad,
@@ -135,8 +137,8 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
     return;
   }
   const World w{gpair, sw_cont, wmeta_pad, nw, ns, gs, (nw + (1 << gs) - 1) >> gs, s[3]};
-  const Leg c = march_leg(w, r, fl0, step_cap_of(s));
-  const int vox = c.hit ? decode_vox(w, r, c.t) : 0;
+  const Leg c = march_leg<kSparse>(w, r, fl0, step_cap_of(s));
+  const int vox = c.hit ? decode_vox<kSparse>(w, r, c.t) : 0;
   ts[o] = c.t;
   fl[o] = encode_flags(c.hit, c.axm, c.stp, vox, r.dx, r.dy, r.dz);
   wa[o] = c.water;
@@ -145,6 +147,17 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
 
 dim3 tile_grid(int height, int width) {
   return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
+}
+
+template <bool kPerRay, bool kSparse>
+void launch_planes(dim3 grid, cudaStream_t stream, const float* scal, const int* gw2,
+                   const int* sw_cont, const int* wmeta_pad, const float* origins,
+                   const float* dirs, const unsigned char* active, const unsigned char* marks,
+                   float* ts, int* fl, float* wa, float* we, int height, int width, int nw, int ns,
+                   int gs) {
+  march_planes4_kernel<kPerRay, kSparse><<<grid, kThreads, 0, stream>>>(
+      scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, marks, ts, fl, wa, we, height, width,
+      nw, ns, gs);
 }
 
 }  // namespace
@@ -168,21 +181,17 @@ extern "C" int touched4_launch(const float* scal, const float* origins, const fl
 }
 
 // March one frame's rays on `stream`, with the rays as in touched4_launch
-// and the marks it wrote. Returns the launch's CUDA error.
+// and the marks it wrote; `sparse` selects the sparse-table instantiation.
+// Returns the launch's CUDA error.
 extern "C" int march_planes4_launch(const float* scal, const int* gw2, const int* sw_cont,
                                     const int* wmeta_pad, const float* origins,
                                     const float* dirs, const unsigned char* active,
                                     const unsigned char* marks, float* ts, int* fl, float* wa,
                                     float* we, int height, int width, int nw, int ns, int gs,
-                                    cudaStream_t stream) {
-  const dim3 grid = tile_grid(height, width);
-  if (origins)
-    march_planes4_kernel<true><<<grid, kThreads, 0, stream>>>(
-        scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, marks, ts, fl, wa, we, height,
-        width, nw, ns, gs);
-  else
-    march_planes4_kernel<false><<<grid, kThreads, 0, stream>>>(
-        scal, gw2, sw_cont, wmeta_pad, origins, dirs, active, marks, ts, fl, wa, we, height,
-        width, nw, ns, gs);
+                                    int sparse, cudaStream_t stream) {
+  auto fn = origins ? (sparse ? launch_planes<true, true> : launch_planes<true, false>)
+                    : (sparse ? launch_planes<false, true> : launch_planes<false, false>);
+  fn(tile_grid(height, width), stream, scal, gw2, sw_cont, wmeta_pad, origins, dirs, active,
+     marks, ts, fl, wa, we, height, width, nw, ns, gs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,13 @@
 """The primary ray tracer's user-facing surface.
 
 Port of ``RenderSettings``, ``WavefrontRenderer.render_packed`` and
-``to_srgb8`` from ``voxelraytracing_tpu/models/raytracer.py``. The
-renderer draws every frame through the fused v4 frame
-(:func:`~..ops.wavefront4.render_frame4` with ``fused=True``): in the JAX
-package its v3/v4 and split/fused paths are bit-identical
-(tests/test_wavefront4.py), so one path serves them all.
+``to_srgb8`` from ``voxelraytracing_tpu/models/raytracer.py``. The renderer
+routes frames as the JAX one does: ``tracer="v4"`` draws the split v4 frame
+(:func:`~..ops.wavefront4.render_frame4`, ``fused=False``), any other
+tracer the v3 frame (``render_frame3``). The v3 kernel is not ported yet
+(ROADMAP queue 2 #8); the JAX package pins v3 and v4 bit-identical at
+converged budgets (tests/test_wavefront4.py:119-158), so the split v4 frame
+serves the v3 route too, with the v3 rounds setting the heatmap scale.
 """
 
 from dataclasses import dataclass
@@ -17,6 +19,7 @@ from ..ops.camera import CamData
 
 STEP_CAP = 500  # per-ray step budget (ray_tracer.wgsl:220)
 STEPS_PER_ROUND = 48  # sets the show_step_count heatmap scale, as in JAX
+TRACERS = ("v1", "v2", "v4")
 
 
 @dataclass(frozen=True)
@@ -41,17 +44,36 @@ def to_srgb8(img):
 
 
 class WavefrontRenderer:
-    """Flagship fast-path renderer over a
-    :class:`~..ops.wavefront3.RenderGrid3`: one fused launch per frame
-    (march + in-kernel shade) emitting packed RGBA8, with the JAX
-    renderer's v4 defaults: the reference kernel's 500-step cap
-    (ray_tracer.wgsl:220) and a step heatmap scaled for 48 steps a round.
+    """Fast-path renderer over a :class:`~..ops.wavefront3.RenderGrid3`:
+    the march, an optional hard-shadow pass and the shade, emitting packed
+    RGBA8, with the JAX renderer's constructor and routing.
+
+    ``tracer="v4"``: the split v4 frame at its default 64 rounds. Any other
+    tracer (the default ``"v2"``, or ``"v1"``): the v3 route, which JAX
+    draws with ``render_frame3`` at ``v3_rounds``; here the split v4 frame
+    with ``rounds=v3_rounds``, which equals it at converged budgets. Both
+    routes march under ``v3_step_cap`` (the reference kernel's 500-step
+    cap, ray_tracer.wgsl:220) and scale the step heatmap to ``rounds *
+    (v3_steps_per_round // 8) * 8``. ``max_rounds`` and ``inner_steps``
+    set the heatmap of the v1 ``render`` path, which is not ported; they
+    are kept for the signature.
     """
 
-    def __init__(self, materials, show_step_count=False):
+    def __init__(self, materials, show_step_count=False, max_rounds=48,
+                 inner_steps=12, tracer="v2", v3_rounds=16,
+                 v3_steps_per_round=STEPS_PER_ROUND, v3_step_cap=STEP_CAP):
+        if tracer not in TRACERS:
+            raise ValueError(f"unknown tracer {tracer!r}")
         self.materials = materials
         self.show_step_count = bool(show_step_count)
-        # warm token of the last frame, keyed by frame size (inert on
+        self.max_rounds = int(max_rounds)
+        self.inner_steps = int(inner_steps)
+        self.tracer = tracer
+        self.v3_rounds = int(v3_rounds)
+        self.v3_steps_per_round = int(v3_steps_per_round)
+        self.v3_step_cap = None if v3_step_cap is None else int(v3_step_cap)
+        # warm token of the last frame, keyed as JAX keys it: the v3 route
+        # on the frame size, the v4 route on ("v4",) + frame size (inert on
         # Hopper, carried so the API matches the JAX renderer)
         self._cache = None
         self._cache_size = None
@@ -65,8 +87,9 @@ class WavefrontRenderer:
         from ..ops.wavefront4 import prepare_grid4, render_frame4
 
         s = settings or RenderSettings()
-        cache = (self._cache if self._cache_size == tuple(cam.proj_size)
-                 else None)
+        v4 = self.tracer == "v4"
+        key = (("v4",) if v4 else ()) + tuple(cam.proj_size)
+        cache = self._cache if self._cache_size == key else None
         # RenderGrid3 is an immutable NamedTuple, so any world change
         # produces a new tuple and re-packs once
         if self._prepared_for is not rgrid3:
@@ -78,10 +101,12 @@ class WavefrontRenderer:
             sun_intensity=s.sun_intensity, shadows=s.shadows,
             shadow_ambient=s.shadow_ambient,
             show_steps=self.show_step_count,
-            steps_per_round=STEPS_PER_ROUND, step_cap=STEP_CAP,
+            rounds=64 if v4 else self.v3_rounds,
+            steps_per_round=self.v3_steps_per_round,
+            step_cap=self.v3_step_cap,
             cache=cache, return_cache=True,
-            prepared=self._prepared, fused=True,
+            prepared=self._prepared, fused=False,
         )
         self._cache = tok
-        self._cache_size = tuple(cam.proj_size)
+        self._cache_size = key
         return img

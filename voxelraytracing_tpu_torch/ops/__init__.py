@@ -1,1 +1,33 @@
-"""Device compute of the port: camera, tables, the v4 march."""
+"""Device compute of the port: camera, tables, the v4 march, the path
+tracers.
+
+The rendering entry points are re-exported here, as the JAX package's
+``ops`` does for those of its entry points that are ported.
+"""
+
+from .camera import CamData, generate_rays
+from .pathtrace3 import path_trace3, path_trace4
+from .pathtrace4 import path_trace_fused4
+from .wavefront3 import build_render_grid3_host, unpack_rgba8
+from .wavefront4 import (
+    PreparedGrid4,
+    PreparedGrid4Sparse,
+    prepare_grid4,
+    render_frame4,
+    trace_wavefront4,
+)
+
+__all__ = [
+    "CamData",
+    "generate_rays",
+    "build_render_grid3_host",
+    "path_trace3",
+    "path_trace4",
+    "PreparedGrid4",
+    "PreparedGrid4Sparse",
+    "path_trace_fused4",
+    "prepare_grid4",
+    "render_frame4",
+    "trace_wavefront4",
+    "unpack_rgba8",
+]

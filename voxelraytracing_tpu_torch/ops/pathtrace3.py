@@ -48,6 +48,7 @@ from .wavefront3 import (
     material_lut_rows,
 )
 from .wavefront4 import (
+    PreparedGrid4Sparse,
     _camera_rays,
     _check,
     _device_of,
@@ -314,14 +315,18 @@ def pt_inputs(rg, cam, materials, *, world_min=None,
               sun_intensity=4.0, step_cap=None, key=None, prepared=None):
     """``(scal, gw2, mlut, sw_cont, wmeta_pad)`` of a path-traced frame on
     the grid's device (the host row is ``scal.cpu()``), and its cropped
-    ``(height, width)``."""
+    ``(height, width)``. The path tracers march dense tables only, as in
+    JAX: a :class:`~.wavefront4.PreparedGrid4Sparse` raises."""
+    if isinstance(prepared, PreparedGrid4Sparse):
+        raise ValueError("the path tracers march dense tables only; got "
+                         "PreparedGrid4Sparse")
     device = rg.sw_solid.device
     scal = pt_scal(rg, cam, world_min=world_min, sky_color=sky_color,
                    sun_pos=sun_pos, sun_intensity=sun_intensity,
                    step_cap=step_cap, key=key)
     mlut = material_lut_rows(materials.color, materials.emission,
                              materials.scatter).to(device)
-    gw2, sw_cont, wmeta_pad = _tables(rg, prepared)
+    gw2, sw_cont, wmeta_pad, _ = _tables(rg, prepared)
     return ((torch.from_numpy(scal).to(device), gw2, mlut, sw_cont,
              wmeta_pad), _frame_dims(*cam.proj_size))
 

@@ -25,6 +25,10 @@ on CUDA tensors and runs the plain PyTorch version on CPU tensors:
   * :func:`shade4` (``csrc/shade4.cu``): the split shade of those planes;
     plain :func:`shade4_ref`.
 
+The march kernels take dense tables (:class:`PreparedGrid4`) or sparse
+ones (:class:`PreparedGrid4Sparse`, the JAX kernel's ``sparse=True`` mode:
+``sparse_ns`` > 0 selects their sparse instantiations).
+
 Entry points with the JAX signatures: :func:`render_frame4`,
 :func:`trace_wavefront4`, :func:`trace_wavefront4_rays`. Per-pixel planes
 stay in image order ``[H, W]`` inside the port; the public functions
@@ -117,6 +121,24 @@ class PreparedGrid4(NamedTuple):
     wmeta_pad: torch.Tensor  # [Nw³,1,128] interleaved window metas
 
 
+class PreparedGrid4Sparse(NamedTuple):
+    """Sparse packed tables (JAX wavefront4.py:2185-2200): content rows
+    only for the subwindows that need voxel bits (non-jump), all-solid
+    ones shared as canonical rows. Lanes 64-127 of each window-meta row
+    hold the content row of the window's 64 subwindows (local subwindow
+    ``sx + sy*4 + sz*16``; -1 where there is none), so the march
+    translates a subwindow to its row through the meta row it reads
+    anyway; it reads a -1 as an empty subwindow (see
+    :func:`_content_base`). A content row carries its subwindow id at
+    meta lane 8. Maintained by
+    :meth:`~..world.render_grid.RenderGrid3Builder.prepared_sparse`; the
+    dense table of the reference's 80-chunk window would be ~15 GB."""
+
+    sw_cont: torch.Tensor    # [R,7,128] content rows
+    wmeta_pad: torch.Tensor  # [Nw³,1,128] metas + row indices at 64-127
+    ns: int                  # subwindows per axis (R does not give it)
+
+
 def _pack_tables4(wmeta, sw_meta, sw_solid, sw_liq, sw_pid):
     def pad128(m):
         return torch.nn.functional.pad(m, (0, 128 - m.shape[1]))
@@ -153,21 +175,27 @@ def _cube_root(n):
     return r
 
 
-def _world_dims(sw_cont, wmeta_pad):
-    """(nw, ns, gs) of a dense table pair."""
-    ns = _cube_root(sw_cont.shape[0])
+def _world_dims(sw_cont, wmeta_pad, sparse_ns=0):
+    """(nw, ns, gs) of a table pair: dense tables give ``ns`` by their
+    row count, sparse ones (``sparse_ns`` > 0) by ``sparse_ns``."""
+    ns = int(sparse_ns) if sparse_ns else _cube_root(sw_cont.shape[0])
     nw = _cube_root(wmeta_pad.shape[0])
     if ns != 4 * nw:
         raise ValueError(f"{ns} subwindows per axis for {nw} windows")
     return nw, ns, _gs_for(nw)
 
 
+def _sparse_ns(prepared):
+    """``ns`` of a sparse token, 0 for dense tables."""
+    return int(prepared.ns) if isinstance(prepared, PreparedGrid4Sparse) else 0
+
+
 # ------------------------------------------------------------- plain version
 
 
 class _World(NamedTuple):
-    """The march's view of one frame: world edge, step cap, table dims and
-    the flat tables."""
+    """The march's view of one frame: world edge, step cap, table dims, the
+    flat tables and whether they are sparse."""
 
     v: float
     step_cap: int
@@ -177,15 +205,38 @@ class _World(NamedTuple):
     gw: torch.Tensor
     wm: torch.Tensor
     swc: torch.Tensor
+    sparse: bool = False
 
 
-def _world_of(scal, gw2, sw_cont, wmeta_pad):
+def _world_of(scal, gw2, sw_cont, wmeta_pad, sparse_ns=0):
     """(world, scalar row as Python floats holding f32 values)."""
     s = scal.detach().cpu().numpy().astype(np.float32)
     sf = [float(x) for x in s]
-    nw, ns, gs = _world_dims(sw_cont, wmeta_pad)
+    nw, ns, gs = _world_dims(sw_cont, wmeta_pad, sparse_ns)
     return _World(sf[3], _step_cap(sf), nw, ns, gs, gw2.reshape(-1),
-                  wmeta_pad.reshape(-1), sw_cont.reshape(-1)), sf
+                  wmeta_pad.reshape(-1), sw_cont.reshape(-1),
+                  bool(sparse_ns)), sf
+
+
+def _content_base(wd, vx, vy, vz):
+    """``(base, missing)``: the flat word offset of the content row of the
+    subwindow holding voxel ``(vx, vy, vz)``, and where a sparse table has
+    no row for it. Dense tables index the row by subwindow id; sparse
+    tables read it from lane ``64 + s_loc`` of the window's meta row,
+    where -1 means no row (``base`` then points at row 0, never read);
+    ``missing`` is None for dense tables.
+    The march reads a missing row as an empty subwindow: that is what a
+    jump subwindow holds, and what every subwindow of a window no chunk
+    was ever installed in holds (the builder leaves that window's meta
+    lanes at 0, so its subwindows do not read as jumps)."""
+    if not wd.sparse:
+        sid = (vx >> 4) + (vy >> 4) * wd.ns + (vz >> 4) * (wd.ns * wd.ns)
+        return sid.long() * (7 * 128), None
+    nw = wd.nw
+    w = (vx >> 6) + (vy >> 6) * nw + (vz >> 6) * (nw * nw)
+    s_loc = ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16
+    ridx = wd.wm[w.long() * 128 + 64 + s_loc.long()]
+    return ridx.clamp_min(0).long() * (7 * 128), ridx < 0
 
 
 def _step_cap(sf):
@@ -272,7 +323,9 @@ def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
     Per ray, in the JAX kernel's op order (wavefront4.py:_march_kernel4):
     steps classified from position alone — global window (super-cell)
     jump, subwindow jump from the window meta, brick skip from the
-    subwindow meta, else a voxel bit test — each advancing by the DDA exit
+    subwindow meta, else a voxel bit test (the subwindow's content row
+    found as :func:`_content_base` says; a missing sparse row marches as
+    an empty subwindow jump) — each advancing by the DDA exit
     of its cell plus EPS_T, with the water interval tracked, until hit,
     exit or ``stp >= step_cap``. Every multiply and add rounds on its own,
     as in the CUDA kernels. Returns ``(t_exit, t, hit, axm, water, wenter,
@@ -280,7 +333,7 @@ def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
     intervals, ``wenter`` the start of an open one or -1."""
     dev = dx.device
     f32, i32 = torch.float32, torch.int32
-    v, step_cap, nw, ns, gs = wd.v, wd.step_cap, wd.nw, wd.ns, wd.gs
+    v, step_cap, nw, gs = wd.v, wd.step_cap, wd.nw, wd.gs
     nwg = (nw + (1 << gs) - 1) >> gs
     sgf, ivs, big, t_exit = _ray_consts(v, ox, oy, oz, dx, dy, dz)
     n = dx.numel()
@@ -331,8 +384,11 @@ def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
         s_loc = ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16
         w_word = wd.wm[(w.long() * 128 + (s_loc >> 4).long())]
         sw_pair = (w_word >> ((s_loc & 15) * 2)) & 3
-        sid = (vx >> 4) + (vy >> 4) * ns + (vz >> 4) * (ns * ns)
-        base = sid.long() * (7 * 128)
+        base, missing = _content_base(wd, vx, vy, vz)
+        case1 = (g_pair & 1) != 0
+        sw_jump = (sw_pair & 1) != 0
+        case2 = ~case1 & (sw_jump if missing is None else sw_jump | missing)
+        case3 = ~case1 & ~case2
         b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16
         b_word = wd.swc[base + 6 * 128 + (b_loc >> 4).long()]
         br_pair = (b_word >> ((b_loc & 15) * 2)) & 3
@@ -341,9 +397,6 @@ def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
         vsolid = ((wd.swc[lw] >> (l & 31)) & 1) != 0
         vliq = ((wd.swc[lw + 128] >> (l & 31)) & 1) != 0
 
-        case1 = (g_pair & 1) != 0
-        case2 = ~case1 & ((sw_pair & 1) != 0)
-        case3 = ~case1 & ~case2
         in_br = case3 & ((br_pair & 1) != 0)
         in_vox = case3 & ~in_br
         hit_now = in_vox & vsolid
@@ -385,9 +438,8 @@ def _leg_ref(wd, ox, oy, oz, dx, dy, dz, active):
 
 def _decode_vox_ref(wd, ox, oy, oz, dx, dy, dz, t, hit):
     """Hit ids at ``t``: 4 palette-index bits + the subwindow palette
-    byte (0 where no hit)."""
+    byte (0 where no hit), read from the hit subwindow's content row."""
     i32 = torch.int32
-    ns = wd.ns
     vox = torch.zeros(t.shape, dtype=i32, device=t.device)
     hi = torch.nonzero(hit).squeeze(1)
     if hi.numel():
@@ -395,15 +447,15 @@ def _decode_vox_ref(wd, ox, oy, oz, dx, dy, dz, t, hit):
         vx = torch.floor(ox[hi] + dx[hi] * th).to(i32)
         vy = torch.floor(oy[hi] + dy[hi] * th).to(i32)
         vz = torch.floor(oz[hi] + dz[hi] * th).to(i32)
-        sid = (vx >> 4) + (vy >> 4) * ns + (vz >> 4) * (ns * ns)
-        base = sid.long() * (7 * 128)
+        base, missing = _content_base(wd, vx, vy, vz)
         l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256
         lw = base + (l >> 5).long()
         pidx = torch.zeros_like(l)
         for b in range(4):
             pidx = pidx | (((wd.swc[lw + (2 + b) * 128] >> (l & 31)) & 1) << b)
         pal_w = wd.swc[base + 6 * 128 + 4 + (pidx >> 2).long()]
-        vox[hi] = (pal_w >> ((pidx & 3) * 8)) & 0xFF
+        ids = (pal_w >> ((pidx & 3) * 8)) & 0xFF
+        vox[hi] = ids if missing is None else torch.where(missing, 0, ids)
     return vox
 
 
@@ -437,12 +489,12 @@ class MarchState(NamedTuple):
     stp: torch.Tensor
 
 
-def march_ref(scal, gw2, sw_cont, wmeta_pad, *, height, width):
+def march_ref(scal, gw2, sw_cont, wmeta_pad, *, height, width, sparse_ns=0):
     """The primary march of :func:`march_fused4_ref`, without the shade:
     camera rays of a whole tile inside the frame, from a camera strictly
     inside the world, through :func:`_leg_ref`; hit ids decoded, the
     water interval closed at ``t``."""
-    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad)
+    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad, sparse_ns)
     pxi, pyi = _pixels(height, width, sw_cont.device)
     rays = _camera_rays(sf, pxi, pyi)
     active = (_tile_ok(sf, pxi, pyi) & _strictly_inside(wd.v, *rays[:3])
@@ -522,20 +574,24 @@ def _shade_pixels(sf, lut_flat, dx, dy, dz, hit, axm, vox, water, stp,
 
 
 def march_fused4_ref(scal, gw2, lut, sw_cont, wmeta_pad, *, height, width,
-                     show_steps=False, max_steps=1, shadows=False):
+                     show_steps=False, max_steps=1, shadows=False,
+                     sparse_ns=0):
     """Plain PyTorch version of the fused v4 frame: march, shadow leg,
     shade.
 
     ``scal`` f32[43] (see :func:`frame_args`), ``gw2`` i32[2,128] pair
     plane, ``lut`` f32[6,128], ``sw_cont`` i32[Ns³,7,128], ``wmeta_pad``
-    i32[Nw³,1,128], all on one device. With ``shadows``, each hit ray
+    i32[Nw³,1,128], all on one device; with ``sparse_ns`` > 0 the tables
+    are a :class:`PreparedGrid4Sparse` pair of that many subwindows per
+    axis (``sw_cont`` i32[R,7,128]). With ``shadows``, each hit ray
     re-marches toward the sun position (``scal[34:37]``) from its
     normal-nudged hit point, under the same step cap; a shadowed hit keeps
     ``scal[37]`` of its light. Returns ``(packed, flags)``, both
     i32[height, width]: packed RGBA8 and the flags word of each pixel.
     """
-    m = march_ref(scal, gw2, sw_cont, wmeta_pad, height=height, width=width)
-    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad)
+    m = march_ref(scal, gw2, sw_cont, wmeta_pad, height=height, width=width,
+                  sparse_ns=sparse_ns)
+    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad, sparse_ns)
     shm = None
     if shadows:
         srays = _shadow_rays(sf, m.dx, m.dy, m.dz, m.t, m.axm)
@@ -595,12 +651,13 @@ def touched4_ref(scal, origins=None, dirs=None, active=None, *, height,
 
 
 def march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins=None,
-                      dirs=None, active=None, *, height, width):
+                      dirs=None, active=None, *, height, width, sparse_ns=0):
     """Plain PyTorch version of the state-plane march.
 
     Camera rays when ``origins`` is None; else per-ray bundles
     ``origins``/``dirs`` f32[height,width,3] and ``active``
     bool[height,width] (see :func:`_start_rays` for which rays start).
+    Tables as in :func:`march_fused4_ref`, sparse when ``sparse_ns`` > 0.
     Returns the raw planes ``(ts, fl, wa, we)``, each [height, width]:
     ``t`` clamped to the slab exit, the flags word, the water length of
     closed intervals, the open interval's start (or -1).
@@ -610,7 +667,7 @@ def march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins=None,
     through: zero planes for camera rays (flags ``_FL_ZERO``), ``(EPS_T,
     active bit, 0, -1)`` for bundles.
     """
-    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad)
+    wd, sf = _world_of(scal, gw2, sw_cont, wmeta_pad, sparse_ns)
     pxi, pyi = _pixels(height, width, sw_cont.device)
     rays, fl0 = _start_rays(sf, pxi, pyi, origins, dirs, active)
     t_exit, t, hit, axm, wa, we, stp = _leg_ref(wd, *rays, fl0)
@@ -688,11 +745,14 @@ def _device_of(x, name):
     return x.device
 
 
-def _table_args(scal, gw2, sw_cont, wmeta_pad):
-    nw, ns, _ = _world_dims(sw_cont, wmeta_pad)
+def _table_args(scal, gw2, sw_cont, wmeta_pad, sparse_ns=0):
+    """Checks of the table arguments: ``sw_cont`` holds Ns³ rows, or any
+    number of content rows when the tables are sparse."""
+    nw, ns, _ = _world_dims(sw_cont, wmeta_pad, sparse_ns)
+    rows = sw_cont.shape[0] if sparse_ns else ns ** 3
     return [("scal", scal, torch.float32, (N_SCAL,)),
             ("gw2", gw2, torch.int32, (2, 128)),
-            ("sw_cont", sw_cont, torch.int32, (ns ** 3, 7, 128)),
+            ("sw_cont", sw_cont, torch.int32, (rows, 7, 128)),
             ("wmeta_pad", wmeta_pad, torch.int32, (nw ** 3, 1, 128))]
 
 
@@ -706,21 +766,22 @@ def _run(dev, name, launch, *args):
 
 
 def march_fused4(scal, gw2, lut, sw_cont, wmeta_pad, *, height, width,
-                 show_steps=False, max_steps=1, shadows=False):
+                 show_steps=False, max_steps=1, shadows=False, sparse_ns=0):
     """Fused v4 frame -> ``(packed, flags)`` i32[height, width].
 
     On CUDA tensors: one launch of the hand-written kernel
-    ``csrc/march4.cu`` (built at first use); on CPU tensors: the plain
-    version :func:`march_fused4_ref`. Any other device raises. Same
-    arguments as :func:`march_fused4_ref`."""
+    ``csrc/march4.cu`` (built at first use), its sparse instantiation
+    when ``sparse_ns`` > 0; on CPU tensors: the plain version
+    :func:`march_fused4_ref`. Any other device raises. Same arguments as
+    :func:`march_fused4_ref`."""
     dev = _device_of(sw_cont, "march_fused4")
     if dev.type == "cpu":
         return march_fused4_ref(scal, gw2, lut, sw_cont, wmeta_pad,
                                 height=height, width=width,
                                 show_steps=show_steps, max_steps=max_steps,
-                                shadows=shadows)
-    nw, ns, gs = _world_dims(sw_cont, wmeta_pad)
-    _check(dev, _table_args(scal, gw2, sw_cont, wmeta_pad)
+                                shadows=shadows, sparse_ns=sparse_ns)
+    nw, ns, gs = _world_dims(sw_cont, wmeta_pad, sparse_ns)
+    _check(dev, _table_args(scal, gw2, sw_cont, wmeta_pad, sparse_ns)
            + [("lut", lut, torch.float32, (6, 128))])
     packed = torch.empty((height, width), dtype=torch.int32, device=dev)
     flags = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -728,7 +789,8 @@ def march_fused4(scal, gw2, lut, sw_cont, wmeta_pad, *, height, width,
          scal.data_ptr(), gw2.data_ptr(), lut.data_ptr(), sw_cont.data_ptr(),
          wmeta_pad.data_ptr(), packed.data_ptr(), flags.data_ptr(),
          height, width, nw, ns, gs, int(bool(show_steps)),
-         ctypes.c_float(float(np.float32(max_steps))), int(bool(shadows)))
+         ctypes.c_float(float(np.float32(max_steps))), int(bool(shadows)),
+         int(bool(sparse_ns)))
     march_fused4.launches += 1
     return packed, flags
 
@@ -776,19 +838,21 @@ touched4.launches = 0  # kernel launches since the last reset
 
 
 def march_planes4(scal, gw2, sw_cont, wmeta_pad, origins=None, dirs=None,
-                  active=None, *, height, width):
+                  active=None, *, height, width, sparse_ns=0):
     """State-plane v4 march -> ``(ts, fl, wa, we)``, each [height, width].
 
     On CUDA tensors: :func:`touched4`, then one launch of
-    ``march_planes4_kernel`` in ``csrc/planes4.cu``, both on the current
-    stream; on CPU tensors: the plain version :func:`march_planes4_ref`.
-    Any other device raises. Same arguments as :func:`march_planes4_ref`."""
+    ``march_planes4_kernel`` in ``csrc/planes4.cu`` (its sparse
+    instantiation when ``sparse_ns`` > 0), both on the current stream; on
+    CPU tensors: the plain version :func:`march_planes4_ref`. Any other
+    device raises. Same arguments as :func:`march_planes4_ref`."""
     dev = _device_of(sw_cont, "march_planes4")
     if dev.type == "cpu":
         return march_planes4_ref(scal, gw2, sw_cont, wmeta_pad, origins,
-                                 dirs, active, height=height, width=width)
-    nw, ns, gs = _world_dims(sw_cont, wmeta_pad)
-    _check(dev, _table_args(scal, gw2, sw_cont, wmeta_pad))
+                                 dirs, active, height=height, width=width,
+                                 sparse_ns=sparse_ns)
+    nw, ns, gs = _world_dims(sw_cont, wmeta_pad, sparse_ns)
+    _check(dev, _table_args(scal, gw2, sw_cont, wmeta_pad, sparse_ns))
     # touched4 checks the bundle before either kernel launches
     marks = touched4(scal, origins, dirs, active, height=height, width=width)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -798,7 +862,7 @@ def march_planes4(scal, gw2, sw_cont, wmeta_pad, origins=None, dirs=None,
          scal.data_ptr(), gw2.data_ptr(), sw_cont.data_ptr(),
          wmeta_pad.data_ptr(), *_bundle_ptrs(origins, dirs, active),
          marks.data_ptr(), ts.data_ptr(), fl.data_ptr(), wa.data_ptr(),
-         we.data_ptr(), height, width, nw, ns, gs)
+         we.data_ptr(), height, width, nw, ns, gs, int(bool(sparse_ns)))
     march_planes4.launches += 1
     return ts, fl, wa, we
 
@@ -879,11 +943,12 @@ def _frame_scal(rg, cam, *, sky_color, sun_pos, sun_intensity,
 
 
 def _tables(rg, prepared):
-    """Pair plane and packed tables of a grid, on its device."""
+    """Pair plane, packed tables (dense, or the sparse token's) and the
+    token's ``sparse_ns`` (0: dense) of a grid, on its device."""
     if prepared is None:
         prepared = prepare_grid4(rg)
     return (_interleave_gw(rg.gw_jump, rg.gw_liq).contiguous(),
-            prepared.sw_cont, prepared.wmeta_pad)
+            prepared.sw_cont, prepared.wmeta_pad, _sparse_ns(prepared))
 
 
 def _frame_dims(width, height):
@@ -912,13 +977,13 @@ def _frame_inputs(rg, cam, materials_color, *, sky_color, sun_pos,
         lut = torch.as_tensor(materials_color)
     else:
         lut = color_lut_rows(materials_color)
-    gw2, sw_cont, wmeta_pad = _tables(rg, prepared)
+    gw2, sw_cont, wmeta_pad, sparse_ns = _tables(rg, prepared)
     args = (gw2, lut.to(device=device, dtype=torch.float32).contiguous(),
             sw_cont, wmeta_pad)
     h, w = _frame_dims(width, height)
     kw = dict(height=h, width=w, show_steps=bool(show_steps),
               max_steps=rounds * sub_rounds * sub_steps,
-              shadows=bool(shadows))
+              shadows=bool(shadows), sparse_ns=sparse_ns)
     return scal, args, kw
 
 
@@ -1016,12 +1081,15 @@ def render_frame4(
     ``show_steps`` (``rounds * (steps_per_round // 8) * 8``): on the TPU
     they bound the in-kernel serve rounds, which the port does not have.
     The warm tokens ``cache``/``return_cache`` keep their JAX shape,
-    i32[nB,2,128] of -1: on Hopper there is no per-block cache to warm,
-    so they are inert, and callers unpack them unchanged. ``s_seg``
-    (subwindow rows per serve DMA) is TPU schedule: accepted because
-    bench.py passes it, and ignored. ``prepared=None`` packs the tables
-    first. A grid with ``palettes_ok=False`` renders, its overflowed ids
-    taking their subwindow's most frequent entry, as in JAX.
+    i32[nB,2,128] of -1 (i32[nB,3,128] for sparse tables): on Hopper there
+    is no per-block cache to warm, so they are inert, and callers unpack
+    them unchanged. ``s_seg`` (subwindow rows per serve DMA) is TPU
+    schedule: accepted because bench.py passes it, and ignored.
+    ``prepared=None`` packs the tables first; ``prepared`` may be a
+    :class:`PreparedGrid4Sparse`, which every path marches through its
+    sparse kernels. A grid with ``palettes_ok=False`` renders, its
+    overflowed ids taking their subwindow's most frequent entry, as in
+    JAX.
     """
     del s_seg  # TPU serve schedule: no meaning for the per-ray march
     if not rg.palettes_ok:
@@ -1038,7 +1106,8 @@ def render_frame4(
     if fused:
         img, fl = march_fused4(scal, gw2, lut, sw_cont, wmeta_pad, **kw)
     else:
-        dims = dict(height=kw["height"], width=kw["width"])
+        dims = dict(height=kw["height"], width=kw["width"],
+                    sparse_ns=kw["sparse_ns"])
         ts, fl, wa, we = march_planes4(scal, gw2, sw_cont, wmeta_pad, **dims)
         sh_fl = None
         if shadows:
@@ -1050,18 +1119,19 @@ def render_frame4(
                           max_steps=kw["max_steps"])
     ret = (img, fl) if with_flags else (img,)
     if return_cache:
-        tok = _token(cam.proj_size, img.device)
+        tok = _token(cam.proj_size, img.device, kw["sparse_ns"])
         passed = None if cache is None else cache[1]
         ret = ret + ((tok, tok if shadows and not fused else passed),)
     return ret if len(ret) > 1 else ret[0]
 
 
-def _token(proj_size, device):
-    """The inert warm token of a frame: i32[nB,2,128] of -1."""
+def _token(proj_size, device, sparse_ns=0):
+    """The inert warm token of a frame: i32[nB,2,128] of -1, with a third
+    row (the JAX kernel's content-row indices) for sparse tables."""
     width, height = proj_size
     _, _, T = _sb_dims(width // TILE_W, height // TILE_H)
-    return torch.full((T // _BLK, 2, 128), -1, dtype=torch.int32,
-                      device=device)
+    return torch.full((T // _BLK, 3 if sparse_ns else 2, 128), -1,
+                      dtype=torch.int32, device=device)
 
 
 # ------------------------------------------------------------------- trace
@@ -1083,7 +1153,7 @@ def _trace_frame4(rg, origin, inv_view, inv_proj, origins3=None, dirs3=None,
     device = rg.sw_solid.device
     scal = _scal_row(rg, np.asarray(origin, np.float32), inv_view, inv_proj,
                      width, height, step_cap)
-    gw2, sw_cont, wmeta_pad = _tables(rg, prepared)
+    gw2, sw_cont, wmeta_pad, sparse_ns = _tables(rg, prepared)
     h, w = _frame_dims(width, height)
     bundle = ()
     if origins3 is not None:
@@ -1094,7 +1164,7 @@ def _trace_frame4(rg, origin, inv_view, inv_proj, origins3=None, dirs3=None,
                                  (active0, torch.bool, (h, w))))
     ts, fl, wa, we = march_planes4(torch.from_numpy(scal).to(device), gw2,
                                    sw_cont, wmeta_pad, *bundle, height=h,
-                                   width=w)
+                                   width=w, sparse_ns=sparse_ns)
     if raw_out:
         return ts, fl, wa, we
     return _trace_result(ts, fl, wa, we)
@@ -1134,9 +1204,10 @@ def trace_wavefront4(rg: RenderGrid3, origin, *, cam=None, width=None,
     The signature of the JAX ``trace_wavefront4``: ``origin`` is the
     world-local camera position (``generate_rays``' origin), ``cam`` the
     CamData. ``rounds``/``steps_per_round`` bound the TPU's serve rounds
-    and mean nothing here. ``cache``/``return_cache``: the warm token
-    keeps its JAX shape i32[nB,2,128] and is inert; ``return_cache=True``
-    returns ``(result, token)``.
+    and mean nothing here. ``prepared`` may be dense or a
+    :class:`PreparedGrid4Sparse`. ``cache``/``return_cache``: the warm
+    token keeps its JAX shape i32[nB,2,128] (3 rows for sparse tables) and
+    is inert; ``return_cache=True`` returns ``(result, token)``.
     """
     del rounds, steps_per_round  # TPU serve schedule
     if cam is None:
@@ -1147,7 +1218,7 @@ def trace_wavefront4(rg: RenderGrid3, origin, *, cam=None, width=None,
     res = _trace_frame4(rg, origin, cam.inv_view, cam.inv_proj, width=width,
                         height=height, step_cap=step_cap, prepared=prepared)
     if return_cache:
-        return res, _token((width, height), res.t.device)
+        return res, _token((width, height), res.t.device, _sparse_ns(prepared))
     return res
 
 

@@ -1,1 +1,2 @@
-"""World builders of the port: the demo terrain."""
+"""World builders of the port: the demo terrain and the streaming
+RenderGrid3 builder."""
