@@ -2,8 +2,8 @@
 
 Drives the port's paths on the demo worlds of bench.py and on a streamed
 strip of demo terrain, through the entry points a user calls
-(``render_frame4``, ``trace_wavefront4_rays``,
-``WavefrontRenderer.render_packed``, ``path_trace3``,
+(``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
+``trace_wavefront3``, ``WavefrontRenderer.render_packed``, ``path_trace3``,
 ``path_trace_fused4`` and ``RenderGrid3Builder``), after building the
 hand-written CUDA kernels from ``voxelraytracing_tpu_torch/csrc`` (one
 nvcc per source, all at once):
@@ -19,7 +19,7 @@ nvcc per source, all at once):
      hold to the JAX package): the cross-platform bar of
      TPU_CORRECTNESS.json, 0 hit and voxel mismatches, every pixel within
      2/255;
-  6. 10 frames through ``render_packed`` (the renderer's default route,
+  6. 10 frames through ``render_packed``'s v4 route (``tracer="v4"``,
      the split frame): marks, planes and shade once a frame, the fused
      kernel never; 10 frames through ``render_frame4(fused=True)``: the
      fused kernel once a frame;
@@ -87,7 +87,26 @@ nvcc per source, all at once):
      (frames/s, ms/frame, its builder and frame shares); the sparse
      kernels on a static 80-chunk frame with their least times and the
      rows they read; the sparse tables' size;
- 19. the script's total seconds.
+ 19. the v3 round-serviced march (``render_frame3``, the renderer's
+     default route) on the 8-chunk world: ``march3`` vs ``march3_ref`` on
+     the inputs of every launch of whole frames, states, flags and wants
+     word for word: bench.py's v3 route (14 rounds, 500-step cap, warm
+     tokens) at 1920x1080 on the static and 3 orbit cameras, config2's
+     720p shadowed frame (per-ray mode), a 1080p trace whose round loop
+     compacts (tile map) and one with ``lookahead=2``;
+ 20. ``render_frame3`` at 320x180 with and without shadows, card vs the
+     plain versions on the CPU: the bar of phase 5;
+ 21. ``render_frame3`` at a converged budget (64 rounds) equals the split
+     v4 frame word for word, shadows on;
+ 22. launches a frame (``march3`` launches are rounds used, plus
+     ``shade4``), counted over 10 orbit frames each: render_packed's
+     default route with and without shadows, bench.py's v3 route and
+     config2's route;
+ 23. timing: ``march3`` alone (the round-0 launch of the static 1080p
+     frame: wrapper calls and CUDA-graph device time), its plain version,
+     its least time; the device time of all the launches of a warm static
+     frame; ms/frame of the three routes, static and orbit, warm;
+ 24. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -470,9 +489,10 @@ def plain_ms(fn):
 
 
 def time_primary(rg, prep, lut, mats, v, phase, n_orbit=N_ORBIT):
-    """ms/frame of the unshadowed frame (fused, and render_packed's split
-    route), the kernel alone and the plain version at 1080p, and the
-    primary steps of the static frame."""
+    """ms/frame of the unshadowed frame (fused, and render_packed's v4
+    route, the split frame), the kernel alone and the plain version at
+    1080p, and the primary steps of the static frame (the default route,
+    the v3 frame, is timed in phase 23)."""
     from voxelraytracing_tpu_torch.models.raytracer import (
         RenderSettings, WavefrontRenderer)
     from voxelraytracing_tpu_torch.ops.wavefront4 import (
@@ -495,8 +515,8 @@ def time_primary(rg, prep, lut, mats, v, phase, n_orbit=N_ORBIT):
     out["frame_static"] = median_windows(lambda i: frame(static), N_ORBIT)
     out["frame_orbit"] = median_windows(lambda i: frame(orbit[i % n_orbit]),
                                         N_ORBIT)
-    # the renderer's default route (JAX's v3 route: the split frame)
-    renderer = WavefrontRenderer(mats)
+    # the renderer's v4 route (the split frame)
+    renderer = WavefrontRenderer(mats, tracer="v4")
     settings = RenderSettings(sun_pos=sun_of(static))
     out["packed_static"] = median_windows(
         lambda i: renderer.render_packed(rg, static, settings), N_ORBIT)
@@ -523,7 +543,7 @@ def time_primary(rg, prep, lut, mats, v, phase, n_orbit=N_ORBIT):
             f"({rays / out['plain_' + k] / 1e3:.3f} Mrays/s)")
     say(phase, f"static steps {out['steps']}, hit subwindow rows "
         f"{out['rows']}")
-    say(phase, f"static: render_packed (default route, split frame) "
+    say(phase, f"static: render_packed (v4 route, split frame) "
         f"{out['packed_static']:.4f} ms a frame "
         f"({rays / out['packed_static'] / 1e3:.3f} Mrays/s)")
     return out
@@ -665,8 +685,9 @@ def shadow_bounds(sh):
 
 def count_main_path(rg, mats, v):
     """The main paths, each driven with the counts set to 0 just before
-    and read just after: 10 frames through render_packed (its default
-    route: the split frame) and 10 through render_frame4(fused=True),
+    and read just after: 10 frames through render_packed's v4 route
+    (``tracer="v4"``: the split frame; its default route, the v3 frame, is
+    counted in phase 22) and 10 through render_frame4(fused=True),
     unshadowed (phase 6) and shadowed (phase 9)."""
     from voxelraytracing_tpu_torch.models.raytracer import (
         STEP_CAP, STEPS_PER_ROUND, RenderSettings, WavefrontRenderer)
@@ -676,7 +697,7 @@ def count_main_path(rg, mats, v):
     _, orbit = bench_cams(v, WIDTH, HEIGHT)
     prep = t4.prepare_grid4(rg)
     counts = {}
-    renderer = WavefrontRenderer(mats)
+    renderer = WavefrontRenderer(mats, tracer="v4")
     for shadows, phase in ((False, 6), (True, 9)):
         for c in counters:
             c.launches = 0
@@ -691,7 +712,7 @@ def count_main_path(rg, mats, v):
             step_cap=STEP_CAP, prepared=prep)
         rimg, _ = t4.march_fused4_ref(*args, **kw)
         alpha_ok = bool(((img >> 24) & 255 == 255).all())
-        say(phase, f"render_packed x10 shadows={shadows}: launches "
+        say(phase, f"render_packed(v4) x10 shadows={shadows}: launches "
             f"fused/planes/touched/shade {counts['packed', shadows]}, frame "
             f"{tuple(img.shape)} {img.dtype}, alpha ok {alpha_ok}, last "
             f"frame == plain version: {bool((img == rimg).all())}")
@@ -1433,6 +1454,320 @@ def time_sparse(strip, b, lut, phase):
     return out
 
 
+# ------------------------------------------------------------- the v3 march
+
+# bench.py's and config2's non-v4 route (bench.py:176-181,
+# benchmarks/run.py:340-346): 14 service rounds, a 500-step cap, each
+# frame warm from the last one's token
+V3_KW = dict(rounds=14, step_cap=500)
+N_ORBIT_V3 = 12
+# FP32 operations of a ray in one v3 launch outside its march steps: its
+# camera ray (24, recomputed each sub-round, counted once) and ray
+# constants (21)
+V3_RAY_OPS = 45
+
+
+class Launches:
+    """Hold every launch of ``wavefront3.march3`` against ``march3_ref``
+    on the same inputs while active: the round loop calls the real
+    wrapper (the kernel), then the plain version; states, flags and wants
+    must agree word for word."""
+
+    def __init__(self):
+        from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+        self.t3, self.kernel = t3, t3.march3
+        self.n = self.bad = 0
+        self.err = 0.0
+        self.modes = set()
+        self.inputs = []
+
+    def __call__(self, scal, mc, ts, fl, wa, we, rays=None, tile_map=None,
+                 **kw):
+        out, want = self.kernel(scal, mc, ts, fl, wa, we, rays, tile_map,
+                                **kw)
+        rout, rwant = self.t3.march3_ref(scal, mc, ts, fl, wa, we, rays,
+                                         tile_map, **kw)
+        self.n += 1
+        self.bad += sum(words_differ(a, b) for a, b in zip(out, rout))
+        self.bad += words_differ(want, rwant)
+        for a, b in zip(out, rout):
+            if a.dtype.is_floating_point:
+                self.err = max(self.err, float((a - b).abs().max()))
+        self.modes.add(("rays" if rays is not None else "camera")
+                       + ("+tile_map" if tile_map is not None else "")
+                       + (f"+lookahead{kw['lookahead']}"
+                          if kw.get("lookahead", 1) > 1 else ""))
+        self.inputs.append((scal, mc, ts, fl, wa, we, rays, tile_map,
+                            dict(kw)))
+        return out, want
+
+    # the wrapper counts through its module name, which this stand-in
+    # holds while active: the count stays the real wrapper's
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.launches = n
+
+    def __enter__(self):
+        self.t3.march3 = self
+        return self
+
+    def __exit__(self, *exc):
+        self.t3.march3 = self.kernel
+
+
+def v3_frame(rg, lut, cam, tok=None, size=None, **kw):
+    """bench.py's v3 frame of ``cam`` (config2's with ``shadows=True``):
+    ``(packed, flags, token)``."""
+    from voxelraytracing_tpu_torch.ops.wavefront3 import render_frame3
+
+    return render_frame3(rg, cam, lut, sun_pos=sun_of(cam), **V3_KW,
+                         with_flags=True, cache=tok, return_cache=True, **kw)
+
+
+def compare_march3(rg, lut, v, phase):
+    """Every launch of whole frames, kernel vs plain version (phase 19)."""
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+    from voxelraytracing_tpu_torch.ops.wavefront3 import trace_wavefront3
+
+    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    s720, _ = bench_cams(v, 1280, 720)
+    frames = 0
+    with Launches() as rec:
+        tok = None
+        for cam in [static] + orbit[::16]:
+            _, _, tok = v3_frame(rg, lut, cam, tok)
+            frames += 1
+        v3_frame(rg, lut, s720, shadows=True)
+        # a trace whose round loop compacts: its survivors must fit a
+        # smaller grid before they finish, which depends on the camera;
+        # the last candidate looks across the world from a low corner,
+        # where far rays keep a long tail
+        across = CamData.create((8.0, 225.0, 0.0), (v * 0.1, v * 0.4, v * 0.1),
+                                70.0, (WIDTH, HEIGHT))
+        for cam in [static] + orbit[::12] + [across]:
+            trace_wavefront3(rg, np.asarray(cam.pos, np.float32), cam=cam,
+                             compact=(2, 8), **V3_KW)
+            if any("tile_map" in m for m in rec.modes):
+                break
+        trace_wavefront3(rg, np.asarray(static.pos, np.float32), cam=static,
+                         lookahead=2, **V3_KW)
+        torch.cuda.synchronize()
+    say(phase, f"march3 vs march3_ref, launch by launch: {rec.n} launches "
+        f"({frames} 1080p bench-route frames, config2's 720p shadowed "
+        f"frame, a compacting 1080p trace, lookahead=2), modes "
+        f"{sorted(rec.modes)}, differing words {rec.bad}, max abs float "
+        f"error {rec.err}")
+    check(rec.bad == 0, "march3 disagrees with march3_ref")
+    check({"camera", "rays", "camera+tile_map", "camera+lookahead2"}
+          <= rec.modes, f"a mode of march3 was not driven: {rec.modes}")
+    return rec.err
+
+
+def compare_v3_cpu(rg_cpu, rg, mats, v, phase):
+    """render_frame3 on the card vs the plain versions on the CPU at
+    320x180, with and without shadows, under the bar of phase 5."""
+    from voxelraytracing_tpu_torch.ops.wavefront3 import render_frame3
+
+    static, orbit = bench_cams(v, 320, 180)
+    cams = [static] + orbit[::8]
+    hit_bad = vox_bad = fl_bad = pk_bad = within = total = 0
+    for shadows in (False, True):
+        for cam in cams:
+            kw = dict(sun_pos=sun_of(cam), shadows=shadows, with_flags=True,
+                      **V3_KW)
+            img, fl = render_frame3(rg, cam, mats.color, **kw)
+            rimg, rfl = render_frame3(rg_cpu, cam, mats.color, **kw)
+            img, fl = img.cpu(), fl.cpu()
+            hit, rhit = (fl >> 1) & 1, (rfl >> 1) & 1
+            hit_bad += int((hit != rhit).sum())
+            both = (hit & rhit) != 0
+            vox_bad += int((((fl >> 17) & 255)
+                            != ((rfl >> 17) & 255))[both].sum())
+            fl_bad += int((fl != rfl).sum())
+            pk_bad += int((img != rimg).sum())
+            within += int((channel_diff(img, rimg) <= 2).sum())
+            total += img.numel()
+    frac = within / total
+    say(phase, f"render_frame3 at 320x180, {len(cams)} cameras with and "
+        f"without shadows, card vs CPU: hit mismatches {hit_bad}, voxel "
+        f"mismatches {vox_bad}, pixels within 2/255 {frac:.6f} (flag words "
+        f"differing {fl_bad}, packed {pk_bad})")
+    check(hit_bad == 0 and vox_bad == 0 and frac == 1.0,
+          "render_frame3 misses the cross-platform bar against the CPU")
+
+
+def compare_v3_converged(rg, prep, lut, v, phase):
+    """At a converged budget (rounds=64, step_cap=500) render_frame3 equals
+    the split v4 frame, shadows on, as JAX pins it
+    (tests/test_wavefront4.py:134-149); the round loop must end before
+    its budget."""
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    s720, _ = bench_cams(v, 1280, 720)
+    bad = 0
+    used = []
+    for cam in (static, orbit[7], s720):
+        kw = dict(sun_pos=sun_of(cam), shadows=True, step_cap=500,
+                  rounds=64, with_flags=True)
+        n0 = t3.march3.launches
+        a = t3.render_frame3(rg, cam, lut, **kw)
+        used.append(t3.march3.launches - n0)
+        b = t4.render_frame4(rg, cam, lut, prepared=prep, **kw)
+        bad += sum(words_differ(x, y) for x, y in zip(a, b))
+    say(phase, f"render_frame3(rounds=64) vs the split v4 frame, shadows on, "
+        f"1080p static and orbit, 720p static: differing words {bad}; "
+        f"launches a frame (both traces) {used}")
+    check(bad == 0, "the converged v3 frame differs from the split v4 frame")
+
+
+def count_v3_routes(rg, mats, lut, v, phase):
+    """march3 and shade4 launches a frame, each route driven with the
+    counts set to 0 just before and read just after: render_packed's
+    default route (10 orbit frames, with and without shadows), bench.py's
+    v3 route (1080p, 10 orbit frames, warm) and config2's (720p, shadows,
+    10 orbit frames, warm)."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    counters = (t3.march3, t4.shade4, t4.march_planes4, t4.touched4,
+                t4.march_fused4)
+    _, orbit = bench_cams(v, WIDTH, HEIGHT)
+    _, o720 = bench_cams(v, 1280, 720)
+    counts = {}
+
+    def run(key, frames):
+        for c in counters:
+            c.launches = 0
+        img = frames()
+        torch.cuda.synchronize()
+        counts[key] = [c.launches for c in counters]
+        check(counts[key][1] == 10 and counts[key][2:] == [0, 0, 0],
+              f"{key}: not one shade4 launch a frame and no v4 march")
+        check(counts[key][0] >= 10, f"{key}: march3 never launched")
+        return img
+
+    for shadows in (False, True):
+        renderer = WavefrontRenderer(mats)
+
+        def packed():
+            for cam in orbit[:10]:
+                img = renderer.render_packed(
+                    rg, cam, RenderSettings(sun_pos=sun_of(cam),
+                                            shadows=shadows))
+            return img
+
+        img = run(("packed", shadows), packed)
+        check(bool(((img >> 24) & 255 == 255).all()), "alpha lost")
+
+    def route(cams, **kw):
+        def frames():
+            tok = None
+            for cam in cams:
+                img, _, tok = v3_frame(rg, lut, cam, tok, **kw)
+            check(bool(torch.isfinite(img.float()).all()), "frame not finite")
+            return img
+        return frames
+
+    run("bench", route(orbit[:10]))
+    run("config2", route(o720[:10], shadows=True))
+    for key, c in counts.items():
+        say(phase, f"{key}: launches march3/shade4/planes4/touched4/fused4 "
+            f"over 10 frames {c} ({c[0] / 10:.1f} march3 launches a frame)")
+    return counts
+
+
+def v3_launch_bound(inputs, out):
+    """(least ms, what bounds it) of one march3 launch from its inputs:
+    the cache blocks and the state read once, the state and wants written
+    once, per-ray bundles read once; the march steps it took."""
+    mc, ts, fl, rays = inputs[1], inputs[2], inputs[3], inputs[6]
+    n = ts.numel()
+    steps = int((((out[1] >> 5) & 0xFFF) - ((fl >> 5) & 0xFFF))
+                .clamp_min(0).sum())
+    b = mc.numel() * 4 + 32 * n + ts.shape[0] * 32
+    if rays is not None:
+        b += 24 * n
+    return bound(b, steps * STEP_OPS + n * V3_RAY_OPS), steps
+
+
+def time_v3(rg, mats, lut, v, phase):
+    """march3 alone (the round-0 launch of the static 1080p bench-route
+    frame, and its plain version), the device time of all the march3
+    launches of a warm static frame, and the frames of the three v3
+    routes, static and orbit, each frame warm from the last."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    static, orbit = bench_cams(v, WIDTH, HEIGHT, N_ORBIT_V3)
+    s720, o720 = bench_cams(v, 1280, 720, N_ORBIT_V3)
+    with Launches() as rec:
+        tok = v3_frame(rg, lut, static)[2]
+    scal, mc, ts, fl, wa, we, rays, tmap, kw = rec.inputs[0]
+    with Launches() as warm:
+        v3_frame(rg, lut, static, tok)
+    out = {"frame_launches": len(warm.inputs)}
+
+    def all_launches(i):
+        for a in warm.inputs:
+            t3.march3(*a[:8], **a[8])
+
+    out["march3_frame_dev"] = graph_ms(all_launches, 4)
+
+    def one(i):
+        return t3.march3(scal, mc, ts, fl, wa, we, rays, tmap, **kw)
+
+    time_kernel(out, "march3", one)
+    out["plain_march3"] = plain_ms(
+        lambda: t3.march3_ref(scal, mc, ts, fl, wa, we, rays, tmap, **kw))
+    out["bound"], out["steps"] = v3_launch_bound(rec.inputs[0], one(0)[0])
+
+    def frames(cams, **kw):
+        tok = [None]
+
+        def fn(i):
+            tok[0] = v3_frame(rg, lut, cams[i % len(cams)], tok[0], **kw)[2]
+        return fn
+
+    out["bench_static"] = median_windows(frames([static]), 8)
+    out["bench_orbit"] = median_windows(frames(orbit), len(orbit))
+    out["config2_static"] = median_windows(frames([s720], shadows=True), 8)
+    out["config2_orbit"] = median_windows(frames(o720, shadows=True),
+                                          len(o720))
+    renderer = WavefrontRenderer(mats)
+
+    def packed(cams):
+        def fn(i):
+            cam = cams[i % len(cams)]
+            renderer.render_packed(rg, cam, RenderSettings(sun_pos=sun_of(cam)))
+        return fn
+
+    out["packed_static"] = median_windows(packed([static]), 8)
+    out["packed_orbit"] = median_windows(packed(orbit), len(orbit))
+    say(phase, f"{WIDTH}x{HEIGHT} march3 round-0 launch: "
+        f"{out['march3']:.4f} ms a wrapper call, {out['march3_dev']:.4f} ms "
+        f"on the device (CUDA graph), plain version "
+        f"{out['plain_march3']:.2f} ms; {out['steps']} steps, least "
+        f"{out['bound'][0]:.5f} ms, bound by {out['bound'][1]}")
+    say(phase, f"{WIDTH}x{HEIGHT} the {out['frame_launches']} march3 launches "
+        f"of a warm static bench-route frame: {out['march3_frame_dev']:.4f} "
+        f"ms on the device (CUDA graph)")
+    say(phase, "ms/frame, warm tokens: bench route 1080p static "
+        f"{out['bench_static']:.3f}, orbit {out['bench_orbit']:.3f}; "
+        f"config2 720p shadows static {out['config2_static']:.3f}, orbit "
+        f"{out['config2_orbit']:.3f}; render_packed default 1080p static "
+        f"{out['packed_static']:.3f}, orbit {out['packed_orbit']:.3f}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1507,6 +1842,13 @@ def main():
     compare_pt_cpu(cpu_worlds, worlds, v, 13)
     pt_counts = count_pt_main_path(rg, mats, orbit[:10], 14)
     tp = time_pt(rg, mats, static, orbit, 15)
+
+    # the v3 march on the 8-chunk world
+    v3_err = compare_march3(rg, lut, v, 19)
+    compare_v3_cpu(rg_cpu, rg, mats, v, 20)
+    compare_v3_converged(rg, prep, lut, v, 21)
+    v3_counts = count_v3_routes(rg, mats, lut, v, 22)
+    tv3 = time_v3(rg, mats, lut, v, 23)
     del worlds, cpu_worlds, rg, prep, rg_cpu
     torch.cuda.empty_cache()
 
@@ -1603,6 +1945,12 @@ def main():
              ms=tsp["planes_camera_dev"] + tsp["planes_rays_dev"],
              plain_ms=tsp["plain_planes"], bound=tsp["bounds"]["planes"]),
     ]
+    kernels.append(dict(
+        name="march3", source=src + "march3.cu",
+        replaces="voxelraytracing_tpu/ops/wavefront3.py:483",
+        launches=v3_counts["packed", False][0], max_abs_err=v3_err,
+        ms=tv3["march3_dev"], plain_ms=tv3["plain_march3"],
+        bound=tv3["bound"]))
     line = []
     for k in kernels:
         (bms, by) = k.pop("bound")
@@ -1612,7 +1960,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=None))
     print(json.dumps({"kernels": line}))
-    say(19, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(24, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from voxelraytracing_tpu.ops import camera as j_camera
 from voxelraytracing_tpu.ops import wavefront3 as j3
 from voxelraytracing_tpu_torch.ops import camera
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CAMS = [
     ((30.0, 45.0, 0.0), (64.0, 75.0, 64.0), (64, 32)),
@@ -112,7 +113,9 @@ def test_tile_layout_equal(w, h):
     np.testing.assert_array_equal(
         back.numpy(), np.asarray(j3._untile_hw(jnp.asarray(tiles.numpy()),
                                                tx, ty, w, h)))
-    np.testing.assert_array_equal(t3._tile_valid(tx, ty, T).numpy(),
+    valid = t3._tile_valid(tx, ty, T, tiles.device)
+    assert valid.device == tiles.device
+    np.testing.assert_array_equal(valid.numpy(),
                                   np.asarray(j3._tile_valid(tx, ty, T)))
 
 

@@ -38,6 +38,7 @@ from voxelraytracing_tpu_torch.models.raytracer import (
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import RenderGrid3, _sb_dims
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 PLANES = ("gw_jump", "gw_liq", "wmeta", "sw_meta", "sw_solid", "sw_liq",
           "sw_pid")

@@ -12,6 +12,7 @@ import torch
 
 import voxelraytracing_tpu_torch
 from voxelraytracing_tpu_torch import _build
+from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,6 +32,7 @@ def test_every_module_imports_without_jax():
     assert {"voxelraytracing_tpu_torch.ops.prng",
             "voxelraytracing_tpu_torch.ops.pathtrace3",
             "voxelraytracing_tpu_torch.ops.pathtrace4",
+            "voxelraytracing_tpu_torch.ops.wavefront3",
             "voxelraytracing_tpu_torch.world.render_grid"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -57,7 +59,7 @@ def test_kernel_build_is_lazy_and_ieee():
     assert "arch=compute_90a,code=sm_90a" in flags
     csrc = ROOT / "voxelraytracing_tpu_torch" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
-    assert set(_build.KERNELS) >= {"march4", "planes4", "shade4",
+    assert set(_build.KERNELS) >= {"march3", "march4", "planes4", "shade4",
                                    "matfetch4", "pathtrace4"}
     for name in _build.KERNELS:
         src, lib = _build.library_path(name)
@@ -86,6 +88,11 @@ def test_wrapper_refuses_other_devices():
     plane = torch.empty(8, 16, **meta)
     with pytest.raises(ValueError, match="cuda or cpu"):
         t4.shade4(args[0], args[2], plane, plane.int(), plane, plane, None)
+    st = torch.empty(64, 128, **meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t3.march3(torch.empty(27, **meta),
+                  torch.empty(1, t3.MC_ROWS, 128, dtype=torch.int32, **meta),
+                  st, st.int(), st, st, nw=1, ns=4, nsx=1, sub_rounds=6)
     for sparse_ns in (0, 4):  # the sparse instantiations too
         with pytest.raises(ValueError, match="cuda or cpu"):
             t4.march_fused4(*args, height=8, width=16, sparse_ns=sparse_ns)
@@ -107,8 +114,12 @@ def test_entry_points_default_to_the_card():
     for fn in (wavefront3.build_render_grid3_host,
                convert.render_grid3_from_numpy, convert.prepared_from_numpy,
                convert.prepared_sparse_from_numpy, camera.generate_rays_raw,
-               camera.generate_rays, RenderGrid3Builder):
+               camera.generate_rays, RenderGrid3Builder,
+               wavefront3.empty_frame_cache):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # helpers take the device of their caller's tensors
+    tile_valid = inspect.signature(wavefront3._tile_valid).parameters
+    assert tile_valid["device"].default is inspect.Parameter.empty
 
 
 def test_chip_smoke_fails_without_the_port_or_a_card(tmp_path):

@@ -3,10 +3,11 @@ card: the fused frame (with and without the shadow leg), the state-plane
 march and its start marks (camera rays and per-ray bundles), their
 sparse-table instantiations (on the 4-chunk demo world and a 34-chunk
 scene), the split shade and the material fetch, each equal word for
-word; sparse frames equal to dense ones; the one-launch
-path tracer, equal where nothing is drawn and within the path-tracing bar
-elsewhere, and equal to the v4 path-tracing route where nothing is drawn;
-each wrapper refusing a wrong dtype or shape.
+word; the v3 march at every launch of whole frames (camera rays, shadow
+bundles, compacted grids, lookahead); sparse frames equal to dense ones;
+the one-launch path tracer, equal where nothing is drawn and within the
+path-tracing bar elsewhere, and equal to the v4 path-tracing route where
+nothing is drawn; each wrapper refusing a wrong dtype or shape.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -466,3 +467,101 @@ def test_sparse_frames_equal_dense_on_the_card(sparse_worlds):
             c = t4.render_frame4(dn.grid(), cam, mats.color,
                                  prepared=dn.prepared(), **kw)
             assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+# ---------------------------------------------------------- the v3 march
+
+
+class _Both:
+    """Stands in for ``wavefront3.march3`` in the round loop: launches the
+    kernel, holds it against ``march3_ref`` on the same inputs, and keeps
+    the modes seen (camera/bundle, tile map, lookahead). The wrapper
+    counts through its module name, so ``launches`` is the real one's."""
+
+    def __init__(self, t3):
+        self.t3, self.kernel, self.seen = t3, t3.march3, []
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.launches = n
+
+    def __call__(self, scal, mc, ts, fl, wa, we, rays=None, tile_map=None,
+                 **kw):
+        before = self.kernel.launches
+        out, want = self.kernel(scal, mc, ts, fl, wa, we, rays, tile_map,
+                                **kw)
+        torch.cuda.synchronize()
+        assert self.kernel.launches == before + 1
+        rout, rwant = self.t3.march3_ref(scal, mc, ts, fl, wa, we, rays,
+                                         tile_map, **kw)
+        for a, b in zip(out, rout):
+            if a.dtype.is_floating_point:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+        assert torch.equal(want, rwant)
+        self.seen.append((rays is not None, tile_map is not None,
+                          kw["lookahead"]))
+        return out, want
+
+
+def _v3_launches(fn):
+    """Run ``fn`` with every ``march3`` launch held against ``march3_ref``;
+    returns the modes of the launches."""
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    both = _Both(t3)
+    t3.march3 = both
+    try:
+        fn()
+    finally:
+        t3.march3 = both.kernel
+    return both.seen
+
+
+@pytest.mark.parametrize("i", range(len(CAMS)))
+@pytest.mark.parametrize("rounds", [2, 16])
+def test_march3_kernel_equals_plain_version(card_world, i, rounds):
+    """Every launch of a shadowed v3 frame (camera rays, then the shadow
+    bundle), word for word, at a starved and a longer budget."""
+    from voxelraytracing_tpu_torch.ops.wavefront3 import render_frame3
+
+    rg, _, mats = card_world
+    cam = CamData.create(*CAMS[i], 70.0, (200, 120))
+    seen = _v3_launches(lambda: render_frame3(
+        rg, cam, mats.color, sun_pos=SUN, shadows=True, rounds=rounds,
+        step_cap=500))
+    assert seen and not seen[0][0]
+
+
+@pytest.mark.parametrize("lookahead", [1, 2])
+def test_march3_kernel_compacted_and_lookahead(card_world, lookahead):
+    """A 256x128 trace whose round loop compacts its tiles (tile map), with
+    and without the lookahead want-list."""
+    from voxelraytracing_tpu_torch.ops.wavefront3 import trace_wavefront3
+
+    rg, _, _ = card_world
+    cam = CamData.create(*CAMS[0], 70.0, (256, 128))
+    seen = _v3_launches(lambda: trace_wavefront3(
+        rg, np.asarray(cam.pos, np.float32), cam=cam, rounds=8, step_cap=500,
+        compact=(2, 8), lookahead=lookahead))
+    assert any(tm for _, tm, _ in seen)
+    assert all(la == lookahead for _, _, la in seen)
+
+
+def test_march3_rejects_bad_inputs(card_world):
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    st = torch.zeros((64, 128), device="cuda")
+    mc = torch.zeros((1, t3.MC_ROWS, 128), dtype=torch.int32, device="cuda")
+    scal = torch.zeros(27, device="cuda")
+    kw = dict(nw=2, ns=8, nsx=1, sub_rounds=6)
+    with pytest.raises(ValueError, match="mc"):
+        t3.march3(scal, mc[:, :100], st, st.int(), st, st, **kw)
+    with pytest.raises(ValueError, match="fl"):
+        t3.march3(scal, mc, st, st, st, st, **kw)
+    with pytest.raises(ValueError, match="whole number"):
+        t3.march3(scal, mc, st[:32], st[:32].int(), st[:32], st[:32], **kw)

@@ -41,6 +41,7 @@ from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
 from voxelraytracing_tpu_torch.ops import prng
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import RenderGrid3
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 SUN = (1000.0, 2500.0, 500.0)
 CAM = ((30.0, 45.0, 0.0), (32.0, 40.0, 32.0), 70.0, (64, 32))

@@ -7,9 +7,12 @@ JAX's default tracer (``"v2"``) draws a RenderGrid3 through
 fused v4 frame: a camera outside the world (the split frames shade the
 untouched zero planes, so they differ from the fused frame on every
 pixel) and the step heatmap (its scale is ``rounds * 48``: 768 on the v3
-route, 3072 on the v4 one). The port's renderer must equal JAX's on both
-routes: packed words exact, except that a sky channel may differ by 1/255
-(the two libms may round ``** 0.35`` apart).
+route, 3072 on the v4 one). A third tells the v3 route from the split v4
+frame: at ``v3_rounds=1`` most rays run out of service rounds and are sky.
+The port's renderer must equal JAX's on both routes: packed words exact,
+except that a sky channel may differ by 1/255 (the two libms may round
+``** 0.35`` apart). The v3 route's warm token steers its service, so a
+second frame of the same renderer is held against JAX's second frame.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from voxelraytracing_tpu_torch.models.raytracer import (
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import RenderGrid3
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 SIZE = (64, 32)
 SUN = (1000.0, 2500.0, 500.0)
@@ -65,9 +69,19 @@ def world():
             r = JWavefrontRenderer(mats, show_step_count=steps, tracer=tracer)
             gold[name, tracer] = np.asarray(
                 r.render_packed(jrg, cam, JRenderSettings(sun_pos=SUN)))
+            if tracer == "v2" and name == "steps":
+                # the warm second frame (the outside camera marches nothing,
+                # so its token cannot change a pixel)
+                gold[name, tracer, "warm"] = np.asarray(
+                    r.render_packed(jrg, cam, JRenderSettings(sun_pos=SUN)))
         gold[name, "fused"] = np.asarray(j_render_frame4(
             jrg, cam, mats.color, sun_pos=SUN, show_steps=steps,
             steps_per_round=48, step_cap=500, fused=True))
+    cfg = CASES["steps"][0]
+    r = JWavefrontRenderer(mats, v3_rounds=1)
+    gold["one_round"] = np.asarray(r.render_packed(
+        jrg, JCamData.create(cfg[0], cfg[1], 70.0, SIZE),
+        JRenderSettings(sun_pos=SUN)))
     return trg, mats, gold
 
 
@@ -107,11 +121,29 @@ def test_render_packed_routes_match_jax(world, case, tracer):
         ch = np.abs(((img >> sh) & 255).astype(int)
                     - ((ref >> sh) & 255).astype(int))
         assert ch.max() <= 1, "a sky channel differs by more than 1/255"
-    # the token is keyed as JAX keys it; a second frame reuses it
+    # the token is keyed as JAX keys it; a second frame reuses it, which on
+    # the v3 route steers the service as JAX's does
     key = (("v4",) if tracer == "v4" else ()) + SIZE
     assert r._cache_size == key
     again = r.render_packed(trg, cam, RenderSettings(sun_pos=SUN))
-    np.testing.assert_array_equal(again.numpy().view(np.uint32), img)
+    np.testing.assert_array_equal(again.numpy().view(np.uint32),
+                                  gold.get((case, tracer, "warm"), img))
+
+
+def test_default_route_at_one_round_matches_jax(world):
+    """At ``v3_rounds=1`` the v3 route is not the converged v4 frame: it
+    equals JAX's ``render_frame3``, and the split v4 frame at the same
+    rounds (the stand-in before the v3 march was ported) differs."""
+    trg, mats, gold = world
+    cfg = CASES["steps"][0]
+    cam = CamData.create(cfg[0], cfg[1], 70.0, SIZE)
+    img = WavefrontRenderer(mats, v3_rounds=1).render_packed(
+        trg, cam, RenderSettings(sun_pos=SUN))
+    np.testing.assert_array_equal(img.numpy().view(np.uint32),
+                                  gold["one_round"])
+    split = t4.render_frame4(trg, cam, mats.color, sun_pos=SUN, rounds=1,
+                             steps_per_round=48, step_cap=500)
+    assert (split.numpy().view(np.uint32) != gold["one_round"]).mean() > 0.1
 
 
 def test_renderer_signature_and_tracer_check():

@@ -28,6 +28,7 @@ from voxelraytracing_tpu_torch.convert import render_grid3_from_numpy
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 # test_wavefront4.py:44-49
 CAMS = [

@@ -32,6 +32,7 @@ from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import _sb_dims
 from voxelraytracing_tpu_torch.world import demo
 from voxelraytracing_tpu_torch.world import render_grid as tr
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 W = 4
 SUN = (1000.0, 2500.0, 500.0)

@@ -36,6 +36,7 @@ from voxelraytracing_tpu_torch.ops import camera as t_camera
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CAMS = [
     ((30.0, 45.0, 0.0), (64.0, 75.0, 64.0)),

@@ -24,6 +24,7 @@ from voxelraytracing_tpu_torch.ops import materials
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.world import demo
 from voxelraytracing_tpu_torch.world import render_grid as tr
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 PLANES = ("gw_jump", "gw_liq", "wmeta", "sw_meta", "sw_solid", "sw_liq",
           "sw_pid")

@@ -25,9 +25,11 @@ from voxelraytracing_tpu_torch.ops import wavefront as t1
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.world import demo
+from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
+# the bit planes, and the v1 brick tables of the "gather" hit-id route
 PLANES = ("gw_jump", "gw_liq", "wmeta", "sw_meta", "sw_solid", "sw_liq",
-          "sw_pid")
+          "sw_pid", "brick_dir", "bricks")
 
 
 def u32(t):
@@ -128,7 +130,8 @@ def test_planes_equal(world, request):
         a, b = np.asarray(getattr(jrg, f)), getattr(trg, f)
         assert b.dtype == torch.int32, f
         assert a.shape == tuple(b.shape), f
-        np.testing.assert_array_equal(a, u32(b), f)
+        # the same bits in JAX's dtype (uint32 planes, int32 brick_dir)
+        np.testing.assert_array_equal(a, b.cpu().numpy().view(a.dtype), f)
     np.testing.assert_array_equal(np.asarray(jrg.world_min),
                                   trg.world_min.numpy())
     np.testing.assert_array_equal(np.asarray(jrg.to_pack), trg.to_pack.numpy())

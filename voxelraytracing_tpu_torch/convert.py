@@ -14,12 +14,13 @@ from .ops.wavefront4 import PreparedGrid4, PreparedGrid4Sparse
 
 
 def render_grid3_from_numpy(gw_jump, gw_liq, wmeta, sw_meta, sw_solid,
-                            sw_liq, sw_pid, world_min, to_pack, n_liquid,
-                            size_voxels, palettes_ok, *, device="cuda"):
-    """The fields of a JAX ``RenderGrid3`` except its v1 brick tables
-    (``brick_dir``/``bricks``), in its order, as NumPy -> the port's
-    RenderGrid3 on ``device``."""
-    planes = (gw_jump, gw_liq, wmeta, sw_meta, sw_solid, sw_liq, sw_pid)
+                            sw_liq, sw_pid, brick_dir, bricks, world_min,
+                            to_pack, n_liquid, size_voxels, palettes_ok, *,
+                            device="cuda"):
+    """The fields of a JAX ``RenderGrid3``, in its order, as NumPy -> the
+    port's RenderGrid3 on ``device``."""
+    planes = (gw_jump, gw_liq, wmeta, sw_meta, sw_solid, sw_liq, sw_pid,
+              brick_dir, bricks)
     return RenderGrid3(
         *[_i32(p, device) for p in planes],
         world_min=_i32(np.asarray(world_min, np.int32), device),

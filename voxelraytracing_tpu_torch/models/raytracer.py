@@ -4,10 +4,8 @@ Port of ``RenderSettings``, ``WavefrontRenderer.render_packed`` and
 ``to_srgb8`` from ``voxelraytracing_tpu/models/raytracer.py``. The renderer
 routes frames as the JAX one does: ``tracer="v4"`` draws the split v4 frame
 (:func:`~..ops.wavefront4.render_frame4`, ``fused=False``), any other
-tracer the v3 frame (``render_frame3``). The v3 kernel is not ported yet
-(ROADMAP queue 2 #8); the JAX package pins v3 and v4 bit-identical at
-converged budgets (tests/test_wavefront4.py:119-158), so the split v4 frame
-serves the v3 route too, with the v3 rounds setting the heatmap scale.
+tracer the v3 frame (:func:`~..ops.wavefront3.render_frame3`) at
+``v3_rounds`` service rounds.
 """
 
 from dataclasses import dataclass
@@ -49,11 +47,11 @@ class WavefrontRenderer:
     RGBA8, with the JAX renderer's constructor and routing.
 
     ``tracer="v4"``: the split v4 frame at its default 64 rounds. Any other
-    tracer (the default ``"v2"``, or ``"v1"``): the v3 route, which JAX
-    draws with ``render_frame3`` at ``v3_rounds``; here the split v4 frame
-    with ``rounds=v3_rounds``, which equals it at converged budgets. Both
-    routes march under ``v3_step_cap`` (the reference kernel's 500-step
-    cap, ray_tracer.wgsl:220) and scale the step heatmap to ``rounds *
+    tracer (the default ``"v2"``, or ``"v1"``): the v3 route,
+    ``render_frame3`` at ``v3_rounds`` service rounds, warm-started from
+    the last v3 frame of the same size. Both routes march under
+    ``v3_step_cap`` (the reference kernel's 500-step cap,
+    ray_tracer.wgsl:220) and scale the step heatmap to ``rounds *
     (v3_steps_per_round // 8) * 8``. ``max_rounds`` and ``inner_steps``
     set the heatmap of the v1 ``render`` path, which is not ported; they
     are kept for the signature.
@@ -73,8 +71,8 @@ class WavefrontRenderer:
         self.v3_steps_per_round = int(v3_steps_per_round)
         self.v3_step_cap = None if v3_step_cap is None else int(v3_step_cap)
         # warm token of the last frame, keyed as JAX keys it: the v3 route
-        # on the frame size, the v4 route on ("v4",) + frame size (inert on
-        # Hopper, carried so the API matches the JAX renderer)
+        # on the frame size (it steers the v3 service), the v4 route on
+        # ("v4",) + frame size (inert on Hopper)
         self._cache = None
         self._cache_size = None
         # packed tables (prepare_grid4), keyed on grid identity
@@ -84,29 +82,32 @@ class WavefrontRenderer:
     def render_packed(self, rgrid3, cam: CamData,
                       settings: RenderSettings = None):
         """One frame -> ``int32[H,W]`` packed RGBA8 on the grid's device."""
+        from ..ops.wavefront3 import render_frame3
         from ..ops.wavefront4 import prepare_grid4, render_frame4
 
         s = settings or RenderSettings()
         v4 = self.tracer == "v4"
         key = (("v4",) if v4 else ()) + tuple(cam.proj_size)
         cache = self._cache if self._cache_size == key else None
-        # RenderGrid3 is an immutable NamedTuple, so any world change
-        # produces a new tuple and re-packs once
-        if self._prepared_for is not rgrid3:
-            self._prepared = prepare_grid4(rgrid3)
-            self._prepared_for = rgrid3
-        img, tok = render_frame4(
-            rgrid3, cam, np.asarray(self.materials.color),
-            sky_color=s.sky_color, sun_pos=s.sun_pos,
-            sun_intensity=s.sun_intensity, shadows=s.shadows,
-            shadow_ambient=s.shadow_ambient,
-            show_steps=self.show_step_count,
-            rounds=64 if v4 else self.v3_rounds,
-            steps_per_round=self.v3_steps_per_round,
-            step_cap=self.v3_step_cap,
-            cache=cache, return_cache=True,
-            prepared=self._prepared, fused=False,
-        )
+        kw = dict(sky_color=s.sky_color, sun_pos=s.sun_pos,
+                  sun_intensity=s.sun_intensity, shadows=s.shadows,
+                  shadow_ambient=s.shadow_ambient,
+                  show_steps=self.show_step_count,
+                  steps_per_round=self.v3_steps_per_round,
+                  step_cap=self.v3_step_cap, cache=cache, return_cache=True)
+        color = np.asarray(self.materials.color)
+        if v4:
+            # RenderGrid3 is an immutable NamedTuple, so any world change
+            # produces a new tuple and re-packs once
+            if self._prepared_for is not rgrid3:
+                self._prepared = prepare_grid4(rgrid3)
+                self._prepared_for = rgrid3
+            img, tok = render_frame4(rgrid3, cam, color,
+                                     prepared=self._prepared, fused=False,
+                                     **kw)
+        else:
+            img, tok = render_frame3(rgrid3, cam, color,
+                                     rounds=self.v3_rounds, **kw)
         self._cache = tok
         self._cache_size = key
         return img

@@ -1,5 +1,5 @@
-"""Device compute of the port: camera, tables, the v4 march, the path
-tracers.
+"""Device compute of the port: camera, tables, the v3 and v4 marches, the
+path tracers.
 
 The rendering entry points are re-exported here, as the JAX package's
 ``ops`` does for those of its entry points that are ported.
@@ -8,7 +8,14 @@ The rendering entry points are re-exported here, as the JAX package's
 from .camera import CamData, generate_rays
 from .pathtrace3 import path_trace3, path_trace4
 from .pathtrace4 import path_trace_fused4
-from .wavefront3 import build_render_grid3_host, unpack_rgba8
+from .wavefront3 import (
+    build_render_grid3_host,
+    empty_frame_cache,
+    render_frame3,
+    trace_wavefront3,
+    trace_wavefront3_rays,
+    unpack_rgba8,
+)
 from .wavefront4 import (
     PreparedGrid4,
     PreparedGrid4Sparse,
@@ -21,13 +28,17 @@ __all__ = [
     "CamData",
     "generate_rays",
     "build_render_grid3_host",
+    "empty_frame_cache",
     "path_trace3",
     "path_trace4",
     "PreparedGrid4",
     "PreparedGrid4Sparse",
     "path_trace_fused4",
     "prepare_grid4",
+    "render_frame3",
     "render_frame4",
+    "trace_wavefront3",
+    "trace_wavefront3_rays",
     "trace_wavefront4",
     "unpack_rgba8",
 ]

@@ -1,6 +1,7 @@
-"""Path tracing on the v4 march: ``path_trace3`` / ``path_trace4``.
+"""Path tracing on the v4 march or the v3 round loop: ``path_trace3`` /
+``path_trace4``.
 
-Port of the v4 route of ``voxelraytracing_tpu/ops/wavefront3.py``
+Port of both routes of ``voxelraytracing_tpu/ops/wavefront3.py``
 (``_path_frame`` :2389, ``path_trace3`` :3046) and of
 ``voxelraytracing_tpu/ops/wavefront4.py:path_trace4`` (:2651), and of the
 material-fetch kernel ``wavefront3.py:_mat_kernel`` (:2306, launched by
@@ -16,11 +17,14 @@ per-ray bundle. The per-ray draws are a murmur3 counter hash of the tiled
 ray id; only the 2-word key of each sample and bounce comes from
 Threefry (:mod:`.prng`), so the draws equal the JAX package's.
 
-The JAX route caps each leg at ``rounds`` serve rounds and can resume
-stragglers (``bounce_rounds``, ``compact_tiles`` and the other knobs of
-:data:`SCHEDULE_KNOBS`): TPU schedule, bit-exact against the uncapped leg
-when its capacities cover the population (tests/test_pathtrace4.py).
-The port marches every leg to its end, which is that uncapped leg.
+On the v4 route the JAX legs are capped at ``rounds`` serve rounds and
+can resume stragglers (``bounce_rounds``, ``compact_tiles`` and the other
+knobs of :data:`SCHEDULE_KNOBS`): TPU schedule, bit-exact against the
+uncapped leg when its capacities cover the population
+(tests/test_pathtrace4.py). The port marches every v4 leg to its end,
+which is that uncapped leg. On the v3 route (``v4=False``) each leg runs
+the v3 round loop (:func:`~.wavefront3._trace_frame`), whose round budget
+decides which rays finish, as in JAX.
 
 The leg-end math (:func:`_leg_shade`, :func:`_bounce_rays`) is shared
 with the one-launch path tracer's plain version
@@ -73,7 +77,8 @@ _M32 = 0xFFFFFFFF
 # (benchmarks/run.py, tools/tpu_correctness.py, tests/test_pathtrace4.py,
 # tests/test_wavefront4.py): serve budgets, leg caps and straggler resume,
 # sorts and re-binning. None changes a converged frame; the port accepts
-# and ignores them.
+# and ignores them, except ``prim_steps_per_round``, which on JAX's v3
+# route sets the sub-rounds of every leg.
 SCHEDULE_KNOBS = frozenset({
     "bounce_steps_per_round", "prim_steps_per_round", "prim_s_seg",
     "prim_rounds", "prim_compact", "bounce_rounds", "compact_tiles",
@@ -342,18 +347,24 @@ def _bundle(rays, live, height, width):
 
 
 def _path_frame(scal, gw2, mlut, sw_cont, wmeta_pad, *, height, width,
-                full_size, bounces, samples, key):
-    """Radiance f32[height, width, 3] of a frame on the v4 route: the
-    camera leg marched once, then per sample each bounce leg as a
-    bundle, with the leg ends of :func:`_leg_shade` and
-    :func:`_bounce_rays` (wavefront3.py:_path_frame)."""
+                full_size, bounces, samples, key, legs=None):
+    """Radiance f32[height, width, 3] of a frame: the camera leg marched
+    once, then per sample each bounce leg as a bundle, with the leg ends
+    of :func:`_leg_shade` and :func:`_bounce_rays`
+    (wavefront3.py:_path_frame). ``legs``: ``(primary(), bounce(origins,
+    dirs, active))`` returning the raw planes ``(ts, fl, wa, we)`` [H,W]
+    of a leg; None marches both on the v4 route (:func:`march_planes4`)."""
     sf = [float(x) for x in scal.cpu().numpy()]
     dims = dict(height=height, width=width)
     pxi, pyi = _pixels(height, width, sw_cont.device)
     rid = ray_ids(pxi, pyi, *full_size)
     cam_rays = _camera_rays(sf, pxi, pyi)
+    if legs is None:
+        legs = (lambda: march_planes4(scal, gw2, sw_cont, wmeta_pad, **dims),
+                lambda o, d, a: march_planes4(scal, gw2, sw_cont, wmeta_pad,
+                                              o, d, a, **dims))
     # the camera leg is the same for every sample
-    prim = march_planes4(scal, gw2, sw_cont, wmeta_pad, **dims)
+    prim = legs[0]()
     prim_mat = _flat(matfetch4(prim[1], mlut))
     acc = None
     for skey in prng.split(key, samples):
@@ -362,9 +373,7 @@ def _path_frame(scal, gw2, mlut, sw_cont, wmeta_pad, *, height, width,
         path = _fresh_path(pxi.numel(), pxi.device)
         for bounce in range(bounces + 1):
             if bounce:
-                planes = march_planes4(scal, gw2, sw_cont, wmeta_pad,
-                                       *_bundle(rays, live, height, width),
-                                       **dims)
+                planes = legs[1](*_bundle(rays, live, height, width))
                 mat = _flat(matfetch4(planes[1], mlut))
             ts, fl, wa, we = (p.reshape(-1) for p in planes)
             t_exit = _slab_exit(sf[3], *rays[:3],
@@ -382,6 +391,42 @@ def _path_frame(scal, gw2, mlut, sw_cont, wmeta_pad, *, height, width,
     return (acc * (1.0 / samples)).reshape(height, width, 3)
 
 
+def _v3_legs(rg, cam, scal, *, height, width, rounds, sub_rounds,
+             step_cap):
+    """The legs of the v3 route (wavefront3.py:2536-2542, :2857-2867):
+    the camera leg through the v3 round loop at ``rounds``, each bounce
+    bundle at ``max(rounds * 2 // 3, 4)``; raw planes in image order."""
+    from .wavefront3 import (
+        _require_tiles,
+        _tile_bundle,
+        _trace_frame,
+        _untile_hw,
+    )
+
+    w, h = cam.proj_size
+    _require_tiles(w, h)
+    kw = dict(width=w, height=h, sub_rounds=sub_rounds, step_cap=step_cap,
+              raw_out=True)
+
+    def image(planes):
+        return tuple(_untile_hw(p, w // TILE_W, h // TILE_H, width, height)
+                     for p in planes)
+
+    def primary():
+        origin = scal[:3].cpu().numpy()
+        return image(_trace_frame(rg, origin, cam.inv_view, cam.inv_proj,
+                                  rounds=rounds, **kw))
+
+    def bounce(o, d, a):
+        rays, act = _tile_bundle(o, d, a, w, h, o.device)
+        eye = np.eye(4, dtype=np.float32)
+        return image(_trace_frame(rg, np.zeros(3, np.float32), eye, eye,
+                                  rays, act, rounds=max(rounds * 2 // 3, 4),
+                                  **kw))
+
+    return primary, bounce
+
+
 def path_trace3(rg, cam, materials, *, world_min=None,
                 sky_color=(0.81, 0.93, 1.0), sun_pos=(0.0, 10_000.0, 0.0),
                 sun_intensity=4.0, bounces=1, samples=1, key=None, rounds=16,
@@ -393,25 +438,39 @@ def path_trace3(rg, cam, materials, *, world_min=None,
     The signature of the JAX ``path_trace3``. ``materials`` is a
     MaterialTable (colour, emission and scatter are read); ``key`` is raw
     key data ``uint32[2]`` (``np.asarray(jax.random.PRNGKey(k))``), None
-    for ``PRNGKey(0)``. ``v4`` picks the march of the JAX route; both
-    routes march the same rays to the same ends, so one march serves
-    them. ``rounds``/``steps_per_round`` and the :data:`SCHEDULE_KNOBS`
-    are TPU schedule and are ignored. ``cache``/``return_cache``: the warm
-    token is inert, as in :func:`~.wavefront4.render_frame4`;
-    ``return_cache=True`` returns ``(img, token)``.
+    for ``PRNGKey(0)``. ``v4=False`` (JAX's default) marches every leg
+    through the v3 round loop, as JAX does: the camera leg at ``rounds``
+    service rounds, each bounce at ``max(rounds * 2 // 3, 4)``, each round
+    ``steps_per_round // 8`` sub-rounds (``prim_steps_per_round``, where
+    given, sets it for both legs, as in JAX); a ray still active when its
+    rounds run out counts as a miss. ``v4=True`` marches every leg to its
+    end on the v4 route, which equals JAX's v4 legs; ``rounds`` and
+    ``steps_per_round`` then mean nothing, and the other
+    :data:`SCHEDULE_KNOBS` are TPU schedule and are ignored on both
+    routes. ``cache``/``return_cache``: the v4 route's warm token is
+    inert, as in :func:`~.wavefront4.render_frame4`; the v3 route, as in
+    JAX, returns None for it. ``return_cache=True`` returns ``(img,
+    token)``.
     """
     unknown = set(schedule) - SCHEDULE_KNOBS
     if unknown:
         raise TypeError(f"path_trace3 got unexpected keywords {sorted(unknown)}")
-    del rounds, steps_per_round, v4, cache  # TPU schedule / inert token
+    del cache  # inert token
     args, (h, w) = pt_inputs(rg, cam, materials, world_min=world_min,
                              sky_color=sky_color, sun_pos=sun_pos,
                              sun_intensity=sun_intensity, step_cap=step_cap,
                              prepared=prepared)
+    legs = None
+    if not v4:
+        spr = schedule.get("prim_steps_per_round") or steps_per_round
+        legs = _v3_legs(rg, cam, args[0], height=h, width=w,
+                        rounds=int(rounds), sub_rounds=max(int(spr) // 8, 1),
+                        step_cap=None if step_cap is None else int(step_cap))
     img = _path_frame(*args, height=h, width=w, full_size=cam.proj_size,
-                      bounces=int(bounces), samples=int(samples), key=key)
+                      bounces=int(bounces), samples=int(samples), key=key,
+                      legs=legs)
     if return_cache:
-        return img, _token(cam.proj_size, img.device)
+        return img, (_token(cam.proj_size, img.device) if v4 else None)
     return img
 
 

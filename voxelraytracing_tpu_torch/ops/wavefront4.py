@@ -59,21 +59,21 @@ from .wavefront3 import (
     _FL_SGN,
     _FL_STP,
     _FL_VOX,
+    _FL_ZERO,
     RenderGrid3,
     _cam_scal,
     _gs_for,
+    _inv_dir,
     _pixel_dirs,
+    _require_tiles,
     _sb_dims,
+    _slab_exit,
     color_lut_rows,
 )
 
 _log = logging.getLogger(__name__)
 
 N_SCAL = 43  # scalar row: _cam_scal's 27 + shade params (see frame_args)
-# The flags word the JAX split path reads from an all-zero state plane
-# (0.0f's bits less its 0x30000000 bias): what a camera-ray block with no
-# ray active at start passes through.
-_FL_ZERO = -0x30000000
 
 
 def _spread16(v):
@@ -274,26 +274,6 @@ def _tile_ok(sf, pxi, pyi):
 
 def _strictly_inside(v, ox, oy, oz):
     return (ox > 0.0) & (ox < v) & (oy > 0.0) & (oy < v) & (oz > 0.0) & (oz < v)
-
-
-def _inv_dir(c):
-    c2 = torch.where(c >= 0.0, torch.clamp_min(c, 1e-7),
-                     torch.clamp_max(c, -1e-7))
-    return 1.0 / c2
-
-
-def _slab_exit(v, ox, oy, oz, iv):
-    """Where a ray leaves the world's slab ``[0, v)³``, capped at
-    ``4v + 16``; ``iv`` are its inverse directions (:func:`_inv_dir`)."""
-
-    def slab(oc, ivc):
-        return torch.maximum((0.0 - oc) * ivc, (v - oc) * ivc)
-
-    t_cap = float(np.float32(4.0) * np.float32(v) + np.float32(16.0))
-    return torch.clamp_max(
-        torch.minimum(slab(ox, iv[0]),
-                      torch.minimum(slab(oy, iv[1]), slab(oz, iv[2]))),
-        t_cap)
 
 
 def _ray_consts(v, ox, oy, oz, dx, dy, dz):
@@ -933,13 +913,28 @@ def _frame_scal(rg, cam, *, sky_color, sun_pos, sun_intensity,
     scal = _scal_row(rg, origin, cam.inv_view, cam.inv_proj, width, height,
                      step_cap)
     scal[22] = sub_rounds
-    sv = sun_local - origin
-    scal[27:30] = sv / np.sqrt(sv[0] * sv[0] + sv[1] * sv[1] + sv[2] * sv[2])
-    scal[30] = sun_intensity
-    scal[31:34] = np.asarray(sky_color, f32).reshape(3)
-    scal[34:37] = sun_local.reshape(3)
-    scal[37] = shadow_ambient
-    return scal
+    return _shade_params(scal, origin, sun_local, sky_color=sky_color,
+                         sun_intensity=sun_intensity,
+                         shadow_ambient=shadow_ambient)
+
+
+def _shade_params(scal, origin, sun_local, *, sky_color, sun_intensity,
+                  shadow_ambient):
+    """The f32[43] row of ``scal``'s first 27 entries and the shade
+    parameters at the JAX kernels' indices: 27-29 the sun direction
+    ``normalize(sun - origin)``, 30 intensity, 31-33 sky, 34-36 sun
+    position, 37 shadow ambient (host arrays, world-local)."""
+    f32 = np.float32
+    row = np.zeros(N_SCAL, f32)
+    row[:27] = scal[:27]
+    sun_local = np.asarray(sun_local, f32).reshape(3)
+    sv = sun_local - np.asarray(origin, f32).reshape(3)
+    row[27:30] = sv / np.sqrt(sv[0] * sv[0] + sv[1] * sv[1] + sv[2] * sv[2])
+    row[30] = sun_intensity
+    row[31:34] = np.asarray(sky_color, f32).reshape(3)
+    row[34:37] = sun_local
+    row[37] = shadow_ambient
+    return row
 
 
 def _tables(rg, prepared):
@@ -1185,13 +1180,6 @@ def _trace_result(ts, fl, wa, we):
     return WavefrontResult(
         hit=hit, voxel=torch.where(hit, (fl >> _FL_VOX) & 0xFF, 0),
         norm=norm, t=ts, water_dist=water, steps=(fl >> _FL_STP) & 0xFFF)
-
-
-def _require_tiles(width, height):
-    if width % TILE_W or height % TILE_H:
-        raise ValueError(
-            f"{width}x{height}: width must be a multiple of {TILE_W} and "
-            f"height of {TILE_H}")
 
 
 def trace_wavefront4(rg: RenderGrid3, origin, *, cam=None, width=None,

@@ -363,6 +363,10 @@ class RenderGrid3Builder:
             sw_solid=planes["sw_solid"],
             sw_liq=planes["sw_liq"],
             sw_pid=planes["sw_pid"],
+            # JAX's stand-ins (render_grid.py:449-450): the "gather"
+            # hit-id route is for one-shot grids with overflowed palettes
+            brick_dir=torch.zeros(1, dtype=torch.int32, device=dev),
+            bricks=torch.zeros((1, 16), dtype=torch.int32, device=dev),
             world_min=_i32(self.world_min.astype(np.int32), dev),
             to_pack=_i32(self.to_pack, dev),
             n_liquid=int(self.n_liquid),
