@@ -3,8 +3,9 @@
 Drives the port's paths on the demo worlds of bench.py and on a streamed
 strip of demo terrain, through the entry points a user calls
 (``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
-``trace_wavefront3``, ``WavefrontRenderer.render_packed``, ``path_trace3``,
-``path_trace_fused4`` and ``RenderGrid3Builder``), after building the
+``trace_wavefront3``, ``WavefrontRenderer.render_packed`` and
+``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``
+and ``RenderGrid3Builder``), after building the
 hand-written CUDA kernels from ``voxelraytracing_tpu_torch/csrc`` (one
 nvcc per source, all at once):
 
@@ -106,7 +107,29 @@ nvcc per source, all at once):
      frame: wrapper calls and CUDA-graph device time), its plain version,
      its least time; the device time of all the launches of a warm static
      frame; ms/frame of the three routes, static and orbit, warm;
- 24. the script's total seconds.
+ 24. the v2 march (``WavefrontRenderer.render`` on a v1 RenderGrid, its
+     default tracer) on the 8-chunk world: the v1 tables built on the card
+     and on the CPU, equal word for word (their brick tables the v3
+     grid's), with their MB;
+ 25. ``march2`` vs ``march2_ref`` on the inputs of every round of whole
+     1080p frames, states and wants word for word: the renderer's budget
+     (48 rounds of 24 steps) on the static and 3 orbit cameras,
+     ``trace_wavefront2``'s default (12 of 48) on the static one;
+ 26. ``render`` (v2) at 320x176, card vs the plain versions on the CPU:
+     0 hit and voxel mismatches, every pixel's sRGB8 within 2/255;
+ 27. the share of rays still marching after the renderer's 48 rounds
+     (drawn as misses), the first round after which none is, and v2 at
+     that budget vs the split v4 trace at 1080p on the same rays: hit
+     masks at most 0.2% apart, voxel ids equal where both hit
+     (tools/tpu_correctness.py:188-190); against v4's own camera rays
+     (an ulp apart on some pixels) the hit bar, voxel ids counted;
+ 28. launches a frame (``march2`` calls and the CUDA launches inside
+     them) over 10 orbit frames of ``render`` (v2); timing: ``march2``
+     round 0 (wrapper calls and CUDA-graph device time), the device time
+     of a frame's calls and of its whole trace, the plain version, the
+     least time, and ms/frame of ``render`` (v2), static and orbit, with
+     the device idle share;
+ 29. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -1467,56 +1490,78 @@ N_ORBIT_V3 = 12
 V3_RAY_OPS = 45
 
 
-class Launches:
-    """Hold every launch of ``wavefront3.march3`` against ``march3_ref``
-    on the same inputs while active: the round loop calls the real
-    wrapper (the kernel), then the plain version; states, flags and wants
-    must agree word for word."""
+def flat_outputs(out):
+    """The tensors of a wrapper's output, nested tuples flattened."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x for o in out for x in flat_outputs(o)]
 
-    def __init__(self):
-        from voxelraytracing_tpu_torch.ops import wavefront3 as t3
-        self.t3, self.kernel = t3, t3.march3
+
+class Launches:
+    """Stand-in for the wrapper ``name`` of the port's ``ops.<module>``
+    while active: calls the real wrapper (the kernel), records each call's
+    ``(args, kw)`` in ``inputs`` and, with ``compare``, holds the call
+    against the plain version ``<name>_ref`` on the same inputs, every
+    output word for word. The wrapper counts through its module name,
+    which the stand-in holds while active: its counts stay the real
+    wrapper's."""
+
+    COUNTS = ("launches", "cuda_launches")
+
+    def __init__(self, module, name, compare=True):
+        import importlib
+
+        self.mod = importlib.import_module(
+            f"voxelraytracing_tpu_torch.ops.{module}")
+        self.name, self.compare = name, compare
+        self.kernel = getattr(self.mod, name)
+        self.ref = getattr(self.mod, name + "_ref")
         self.n = self.bad = 0
         self.err = 0.0
-        self.modes = set()
         self.inputs = []
 
-    def __call__(self, scal, mc, ts, fl, wa, we, rays=None, tile_map=None,
-                 **kw):
-        out, want = self.kernel(scal, mc, ts, fl, wa, we, rays, tile_map,
-                                **kw)
-        rout, rwant = self.t3.march3_ref(scal, mc, ts, fl, wa, we, rays,
-                                         tile_map, **kw)
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
         self.n += 1
-        self.bad += sum(words_differ(a, b) for a, b in zip(out, rout))
-        self.bad += words_differ(want, rwant)
-        for a, b in zip(out, rout):
-            if a.dtype.is_floating_point:
-                self.err = max(self.err, float((a - b).abs().max()))
-        self.modes.add(("rays" if rays is not None else "camera")
-                       + ("+tile_map" if tile_map is not None else "")
-                       + (f"+lookahead{kw['lookahead']}"
-                          if kw.get("lookahead", 1) > 1 else ""))
-        self.inputs.append((scal, mc, ts, fl, wa, we, rays, tile_map,
-                            dict(kw)))
-        return out, want
+        self.inputs.append((args, dict(kw)))
+        if self.compare:
+            pairs = list(zip(flat_outputs(out),
+                             flat_outputs(self.ref(*args, **kw))))
+            self.bad += sum(words_differ(a, b) for a, b in pairs)
+            for a, b in pairs:
+                if a.dtype.is_floating_point:
+                    self.err = max(self.err, float((a - b).abs().max()))
+        return out
 
-    # the wrapper counts through its module name, which this stand-in
-    # holds while active: the count stays the real wrapper's
-    @property
-    def launches(self):
-        return self.kernel.launches
+    def __getattr__(self, k):
+        if k not in self.COUNTS:
+            raise AttributeError(k)
+        return getattr(self.kernel, k)
 
-    @launches.setter
-    def launches(self, n):
-        self.kernel.launches = n
+    def __setattr__(self, k, n):
+        if k in self.COUNTS:
+            setattr(self.kernel, k, n)
+        else:
+            super().__setattr__(k, n)
 
     def __enter__(self):
-        self.t3.march3 = self
+        setattr(self.mod, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.t3.march3 = self.kernel
+        setattr(self.mod, self.name, self.kernel)
+
+
+def v3_modes(rec):
+    """The modes of the recorded march3 calls (camera rays or a bundle,
+    tile map, lookahead)."""
+    modes = set()
+    for (_, _, _, _, _, _, rays, tile_map), kw in rec.inputs:
+        modes.add(("rays" if rays is not None else "camera")
+                  + ("+tile_map" if tile_map is not None else "")
+                  + (f"+lookahead{kw['lookahead']}"
+                     if kw.get("lookahead", 1) > 1 else ""))
+    return modes
 
 
 def v3_frame(rg, lut, cam, tok=None, size=None, **kw):
@@ -1536,7 +1581,7 @@ def compare_march3(rg, lut, v, phase):
     static, orbit = bench_cams(v, WIDTH, HEIGHT)
     s720, _ = bench_cams(v, 1280, 720)
     frames = 0
-    with Launches() as rec:
+    with Launches("wavefront3", "march3") as rec:
         tok = None
         for cam in [static] + orbit[::16]:
             _, _, tok = v3_frame(rg, lut, cam, tok)
@@ -1551,7 +1596,7 @@ def compare_march3(rg, lut, v, phase):
         for cam in [static] + orbit[::12] + [across]:
             trace_wavefront3(rg, np.asarray(cam.pos, np.float32), cam=cam,
                              compact=(2, 8), **V3_KW)
-            if any("tile_map" in m for m in rec.modes):
+            if any("tile_map" in m for m in v3_modes(rec)):
                 break
         trace_wavefront3(rg, np.asarray(static.pos, np.float32), cam=static,
                          lookahead=2, **V3_KW)
@@ -1559,11 +1604,12 @@ def compare_march3(rg, lut, v, phase):
     say(phase, f"march3 vs march3_ref, launch by launch: {rec.n} launches "
         f"({frames} 1080p bench-route frames, config2's 720p shadowed "
         f"frame, a compacting 1080p trace, lookahead=2), modes "
-        f"{sorted(rec.modes)}, differing words {rec.bad}, max abs float "
-        f"error {rec.err}")
+        f"{sorted(v3_modes(rec))}, differing words {rec.bad}, max abs "
+        f"float error {rec.err}")
     check(rec.bad == 0, "march3 disagrees with march3_ref")
     check({"camera", "rays", "camera+tile_map", "camera+lookahead2"}
-          <= rec.modes, f"a mode of march3 was not driven: {rec.modes}")
+          <= v3_modes(rec), f"a mode of march3 was not driven: "
+          f"{v3_modes(rec)}")
     return rec.err
 
 
@@ -1709,26 +1755,25 @@ def time_v3(rg, mats, lut, v, phase):
 
     static, orbit = bench_cams(v, WIDTH, HEIGHT, N_ORBIT_V3)
     s720, o720 = bench_cams(v, 1280, 720, N_ORBIT_V3)
-    with Launches() as rec:
+    with Launches("wavefront3", "march3") as rec:
         tok = v3_frame(rg, lut, static)[2]
-    scal, mc, ts, fl, wa, we, rays, tmap, kw = rec.inputs[0]
-    with Launches() as warm:
+    args, kw = rec.inputs[0]
+    with Launches("wavefront3", "march3") as warm:
         v3_frame(rg, lut, static, tok)
     out = {"frame_launches": len(warm.inputs)}
 
     def all_launches(i):
-        for a in warm.inputs:
-            t3.march3(*a[:8], **a[8])
+        for a, k in warm.inputs:
+            t3.march3(*a, **k)
 
     out["march3_frame_dev"] = graph_ms(all_launches, 4)
 
     def one(i):
-        return t3.march3(scal, mc, ts, fl, wa, we, rays, tmap, **kw)
+        return t3.march3(*args, **kw)
 
     time_kernel(out, "march3", one)
-    out["plain_march3"] = plain_ms(
-        lambda: t3.march3_ref(scal, mc, ts, fl, wa, we, rays, tmap, **kw))
-    out["bound"], out["steps"] = v3_launch_bound(rec.inputs[0], one(0)[0])
+    out["plain_march3"] = plain_ms(lambda: t3.march3_ref(*args, **kw))
+    out["bound"], out["steps"] = v3_launch_bound(args, one(0)[0])
 
     def frames(cams, **kw):
         tok = [None]
@@ -1765,6 +1810,329 @@ def time_v3(rg, mats, lut, v, phase):
         f"config2 720p shadows static {out['config2_static']:.3f}, orbit "
         f"{out['config2_orbit']:.3f}; render_packed default 1080p static "
         f"{out['packed_static']:.3f}, orbit {out['packed_orbit']:.3f}")
+    return out
+
+# the v2 march: WavefrontRenderer.render on a v1 RenderGrid (its default
+# tracer "v2", models/raytracer.py:340-355) marches 48 rounds of 24 steps
+# (2 sub-rounds of 12); trace_wavefront2's own default is 12 rounds of 48
+# (4 sub-rounds)
+V2_BUDGET = (48, 24)
+V2_TRACE_BUDGET = (12, 48)
+N_ORBIT_V2 = 12
+V2_ROUNDS_MAX = 4096    # the search for a budget that leaves no ray active
+V2_HIT_BAR = 0.002      # hit masks apart (tools/tpu_correctness.py:188)
+# share of the pixels both hit whose voxel ids differ between converged v2
+# and v4's own camera rays, which lie an ulp from v2's on some pixels, so
+# a ray grazing a voxel edge may end in its neighbour (measured: 10, 6 and
+# 2 of 348,582, 388,129 and 371,757 hits on the three cameras, at most
+# 2.9e-5; the bar is ~35x that)
+V2_OWN_VOX_BAR = 1e-3
+# FP32 operations of a ray in one march2 call outside its march steps:
+# inverse directions and slab exit (21), recomputed each launch, counted
+# once
+V2_RAY_OPS = 21
+
+
+def build_world1(w_chunks, device="cuda"):
+    """bench.py's demo world as v1 tables (``build_render_grid_host``)."""
+    from voxelraytracing_tpu_torch.ops import noise
+    from voxelraytracing_tpu_torch.ops.wavefront import build_render_grid_host
+    from voxelraytracing_tpu_torch.world.demo import (
+        demo_chunk_grids_host, demo_materials)
+
+    grids, cells = demo_chunk_grids_host(
+        noise.make_permutation(7), np.zeros(3, np.int64), w_chunks,
+        w_chunks * 32 * 0.45, int(w_chunks * 32 * 0.28))
+    return build_render_grid_host(grids, cells, np.zeros(3, np.int32),
+                                  w_chunks, demo_materials(), device=device)
+
+
+def v2_trace(rg1, cam, rounds, spr):
+    """``trace_wavefront2`` of ``cam``'s rays."""
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+
+    w, h = cam.proj_size
+    origin, dirs = generate_rays(cam, np.zeros(3, np.int32),
+                                 device=rg1.bwin.device)
+    return t2.trace_wavefront2(rg1, origin, dirs, width=w, height=h,
+                               rounds=rounds, steps_per_round=spr)
+
+
+def v2_active_by_round(rg1, cam, spr):
+    """Rays of ``cam``'s v2 frame after each round of the round loop of
+    ``trace_wavefront2`` (read each round): ``(active, live)``, live ones
+    still short of their slab exit. The loop stops at the first round
+    that leaves no live ray, or at ``V2_ROUNDS_MAX``. A ray that left the
+    world through a low face can stay active past its exit for good: its
+    window id is negative, a want the service drops (wavefront2.py:630);
+    its result is final (the finish closes it at its exit)."""
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+    from voxelraytracing_tpu_torch.ops.wavefront3 import _inv_dir, _slab_exit
+
+    w, h = cam.proj_size
+    origin, dirs = generate_rays(cam, np.zeros(3, np.int32),
+                                 device=rg1.bwin.device)
+    f, c = t2._frame_inputs(rg1, origin, dirs, w, h)
+    o = f["origin"]
+    t_exit = _slab_exit(float(rg1.size_voxels), o[0], o[1], o[2],
+                        [_inv_dir(f[k]) for k in ("dx", "dy", "dz")])
+    active, live = [], []
+    for c in t2._rounds(rg1, f, c, V2_ROUNDS_MAX, max(spr // 12, 1)):
+        a = c["state"]["active"] != 0
+        active.append(int(a.sum()))
+        live.append(int((a & (c["state"]["t"] < t_exit)).sum()))
+        if live[-1] == 0:
+            break
+    return active, live
+
+
+def v2_tables(rg3, phase):
+    """The 8-chunk world's v1 tables built onto the card and on the CPU:
+    equal word for word; their brick tables are the v3 grid's."""
+    t0 = time.perf_counter()
+    rg1, v = build_world1(8), 8 * 32
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    rg1_cpu = build_world1(8, "cpu")
+    fields = ("bwin", "lwin", "brick_dir", "bricks", "world_min", "to_pack")
+    same = all(torch.equal(getattr(rg1, f).cpu(), getattr(rg1_cpu, f))
+               for f in fields)
+    same = same and (rg1.n_liquid, rg1.size_voxels) == (
+        rg1_cpu.n_liquid, rg1_cpu.size_voxels) == (rg3.n_liquid, v)
+    shared = all(torch.equal(getattr(rg1, f), getattr(rg3, f))
+                 for f in ("brick_dir", "bricks"))
+    mb = {f: getattr(rg1, f).numel() * 4 / 1e6 for f in fields[:4]}
+    say(phase, f"8-chunk world v1 tables: host build onto the card "
+        f"{t_card:.1f} s; card == CPU word for word {same}; brick tables "
+        f"== the v3 grid's {shared}; MB " + ", ".join(
+            f"{f} {m:.2f}" for f, m in mb.items())
+        + f" ({sum(mb.values()):.2f} total)")
+    check(same and shared, "the v1 tables differ between card and CPU")
+    return rg1, rg1_cpu
+
+
+def compare_march2(rg1, v, phase):
+    """Every round of whole 1080p frames, kernel vs plain version: the
+    renderer's budget on the static and 3 orbit cameras, trace_wavefront2's
+    default on the static one."""
+    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    with Launches("wavefront2", "march2") as rec:
+        for cam in [static] + orbit[::16]:
+            v2_trace(rg1, cam, *V2_BUDGET)
+        v2_trace(rg1, static, *V2_TRACE_BUDGET)
+        torch.cuda.synchronize()
+    n = 4 * V2_BUDGET[0] + V2_TRACE_BUDGET[0]
+    subs = sorted({k["sub_rounds"] for _, k in rec.inputs})
+    say(phase, f"march2 vs march2_ref, round by round: {rec.n} calls (4 "
+        f"1080p frames at {V2_BUDGET[0]}x{V2_BUDGET[1]}, one at "
+        f"{V2_TRACE_BUDGET[0]}x{V2_TRACE_BUDGET[1]}; sub-rounds "
+        f"{subs}), differing words {rec.bad}, max abs float error "
+        f"{rec.err}")
+    check(rec.n == n, f"{rec.n} march2 calls, want {n}")
+    check(rec.bad == 0, "march2 disagrees with march2_ref")
+    return rec.err
+
+
+def compare_v2_cpu(rg1_cpu, rg1, mats, v, phase):
+    """``render`` (v2) on the card vs the plain versions on the CPU at
+    320x176 (v2 frames are whole 16x8 tiles, so not 320x180): 0 hit and
+    voxel mismatches, every pixel's sRGB8 within 2/255."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer, to_srgb8)
+
+    static, orbit = bench_cams(v, 320, 176)
+    cams = [static] + orbit[::24]
+    hit_bad = vox_bad = within = total = 0
+    worst = 0
+    for cam in cams:
+        s = RenderSettings(sun_pos=sun_of(cam))
+        img, wf = WavefrontRenderer(mats).render(rg1, cam, s)
+        rimg, rwf = WavefrontRenderer(mats).render(rg1_cpu, cam, s)
+        hit, rhit = wf.hit.cpu(), rwf.hit
+        hit_bad += int((hit != rhit).sum())
+        vox_bad += int((wf.voxel.cpu() != rwf.voxel)[hit & rhit].sum())
+        d = np.abs(to_srgb8(img).astype(int) - to_srgb8(rimg).astype(int))
+        d = d.max(axis=-1)
+        worst = max(worst, int(d.max()))
+        within += int((d <= 2).sum())
+        total += d.size
+    frac = within / total
+    say(phase, f"render (v2) at 320x176, {len(cams)} cameras, card vs CPU: "
+        f"hit mismatches {hit_bad}, voxel mismatches {vox_bad}, pixels "
+        f"within 2/255 {frac:.6f} (worst channel {worst}/255)")
+    check(hit_bad == 0 and vox_bad == 0 and frac == 1.0,
+          "render (v2) misses the cross-platform bar against the CPU")
+
+
+def compare_v2_converged(rg1, rg3, prep, v, phase):
+    """The rays still marching after the renderer's budget (drawn as
+    misses); the first round after which none is; v2 at that budget vs the
+    split v4 trace: on the same rays (``trace_wavefront4_rays`` of v2's
+    directions) hit masks within the bar and voxel ids equal where both
+    hit; on v4's own camera rays (made in its kernel, an ulp apart on
+    some pixels) the hit bar and the voxel ids within their bar."""
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+    from voxelraytracing_tpu_torch.ops.wavefront4 import (
+        trace_wavefront4, trace_wavefront4_rays)
+
+    static, orbit = bench_cams(v, WIDTH, HEIGHT)
+    px = WIDTH * HEIGHT
+    out = {}
+    for name, cam in (("static", static), ("orbit0", orbit[0]),
+                      ("orbit24", orbit[24])):
+        active, live = v2_active_by_round(rg1, cam, V2_BUDGET[1])
+        check(live[-1] == 0, f"{name}: rays still marching after "
+              f"{V2_ROUNDS_MAX} rounds")
+        r_conv = len(live)
+        # the loop stops at the first round that leaves no live ray
+        k = V2_BUDGET[0] - 1
+        left = (live[k], active[k]) if r_conv > k else (0, active[-1])
+        res2 = v2_trace(rg1, cam, r_conv, V2_BUDGET[1])
+        origin, dirs = generate_rays(cam, np.zeros(3, np.int32),
+                                     device=rg1.bwin.device)
+        same = trace_wavefront4_rays(
+            rg3, origin.expand(HEIGHT, WIDTH, 3), dirs,
+            torch.ones((HEIGHT, WIDTH), dtype=torch.bool, device=dirs.device),
+            width=WIDTH, height=HEIGHT)
+        own = trace_wavefront4(rg3, np.asarray(cam.pos, np.float32), cam=cam,
+                               prepared=prep)
+        o = dict(share=left[0] / px, rounds=r_conv, past_exit=active[-1],
+                 hits=int(res2.hit.sum()))
+        for key, r4 in (("same", same), ("own", own)):
+            both = res2.hit & r4.hit
+            o[key] = (float((res2.hit != r4.hit).float().mean()),
+                      int((res2.voxel != r4.voxel)[both].sum()),
+                      int(both.sum()))
+        out[name] = o
+        say(phase, f"{name}: after {V2_BUDGET[0]} rounds {left[0]} rays "
+            f"still marching ({o['share']:.6%}, drawn as misses), "
+            f"{left[1]} active; none marching after round {r_conv} "
+            f"({o['past_exit']} stay active past their exit); v2 at "
+            f"{r_conv}x{V2_BUDGET[1]} ({o['hits']} hits) vs the split v4 "
+            f"trace: same rays: hit masks {o['same'][0]:.6%} apart, voxel "
+            f"ids differing where both hit {o['same'][1]}; v4's own camera "
+            f"rays: {o['own'][0]:.6%} apart, {o['own'][1]} voxel ids of "
+            f"{o['own'][2]} ({o['own'][1] / max(o['own'][2], 1):.3e}, bar "
+            f"{V2_OWN_VOX_BAR})")
+        check(o["same"][0] <= V2_HIT_BAR and o["same"][1] == 0,
+              f"{name}: converged v2 differs from v4 beyond the bar")
+        check(o["own"][0] <= V2_HIT_BAR
+              and o["own"][1] <= V2_OWN_VOX_BAR * o["own"][2],
+              f"{name}: converged v2 and v4's camera frame apart beyond "
+              f"the bars")
+    return out
+
+
+def count_v2_main_path(rg1, mats, v, phase):
+    """The main path of this slice, driven with the counts set to 0 just
+    before and read just after: 10 orbit frames through
+    ``WavefrontRenderer.render`` on the v1 grid at 1080p; march2 once a
+    round (48 a frame), the v3 and v4 kernels never."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    others = (t3.march3, t4.shade4, t4.march_planes4, t4.touched4,
+              t4.march_fused4)
+    _, orbit = bench_cams(v, WIDTH, HEIGHT)
+    renderer = WavefrontRenderer(mats)
+    for c in (t2.march2,) + others:
+        c.launches = 0
+    t2.march2.cuda_launches = 0
+    for cam in orbit[:10]:
+        img, wf = renderer.render(rg1, cam, RenderSettings(sun_pos=sun_of(cam)))
+    torch.cuda.synchronize()
+    counts = [t2.march2.launches, t2.march2.cuda_launches] + [
+        c.launches for c in others]
+    say(phase, f"render (v2) x10 at {WIDTH}x{HEIGHT}: march2 calls "
+        f"{counts[0]} ({counts[0] / 10:.1f} a frame), CUDA launches inside "
+        f"them {counts[1]} ({counts[1] / 10:.1f} a frame); march3/shade4/"
+        f"planes4/touched4/fused4 {counts[2:]}; last image "
+        f"{tuple(img.shape)}, {int(wf.hit.sum())} hits")
+    check(counts[0] == 10 * V2_BUDGET[0], "march2 not once a round")
+    check(counts[1] == counts[0] * (1 + V2_BUDGET[1] // 12),
+          "march2 did not launch 1 + sub_rounds kernels a call")
+    check(counts[2:] == [0] * len(others), "a v3/v4 kernel ran on the v2 path")
+    check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (
+        HEIGHT, WIDTH, 3), "the v2 frame is not a finite image")
+    return counts
+
+
+def v2_call_bound(args, out):
+    """(least ms, what bounds it) of one march2 call: directions, state
+    in and out, caches and wants once each; the march steps it took."""
+    n = args[1].numel()
+    steps = int((out[9] - args[20]).clamp_min(0).sum())
+    caches = sum(x.numel() * 4 for x in args[4:11])
+    b = 12 * n + 40 * n + 40 * n + caches + args[1].shape[0] * 17 * 4
+    return bound(b, steps * STEP_OPS + n * V2_RAY_OPS), steps
+
+
+def time_v2(rg1, mats, v, phase):
+    """march2 alone (round 0 of the static 1080p frame at the renderer's
+    budget: wrapper calls and CUDA-graph device time, and the plain
+    version), the device time of a frame's 48 calls and of its whole
+    trace (service included), and ms/frame of ``render`` (v2), static and
+    the 12-camera orbit, with the device idle share."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+
+    static, orbit = bench_cams(v, WIDTH, HEIGHT, N_ORBIT_V2)
+    with Launches("wavefront2", "march2", compare=False) as rec:
+        v2_trace(rg1, static, *V2_BUDGET)
+    args, kw = rec.inputs[0]
+    out = {"frame_calls": len(rec.inputs)}
+
+    def all_calls(i):
+        for a, k in rec.inputs:
+            t2.march2(*a, **k)
+
+    out["march2_frame_dev"] = graph_ms(all_calls, 1)
+
+    def one(i):
+        return t2.march2(*args, **kw)
+
+    time_kernel(out, "march2", one)
+    out["plain_march2"] = plain_ms(lambda: t2.march2_ref(*args, **kw))
+    out["bound"], out["steps"] = v2_call_bound(args, one(0))
+    origin, dirs = generate_rays(static, np.zeros(3, np.int32))
+
+    def trace(i):
+        t2.trace_wavefront2(rg1, origin, dirs, width=WIDTH, height=HEIGHT,
+                            rounds=V2_BUDGET[0], steps_per_round=V2_BUDGET[1])
+
+    out["trace_dev"] = graph_ms(trace, 1)
+    renderer = WavefrontRenderer(mats)
+
+    def frames(cams):
+        def fn(i):
+            cam = cams[i % len(cams)]
+            renderer.render(rg1, cam, RenderSettings(sun_pos=sun_of(cam)))
+        return fn
+
+    out["static"] = median_windows(frames([static]), 8)
+    out["orbit"] = median_windows(frames(orbit), len(orbit))
+    out["idle_static"] = 1.0 - out["trace_dev"] / out["static"]
+    say(phase, f"{WIDTH}x{HEIGHT} march2, round 0 of the static frame "
+        f"({kw['sub_rounds']} sub-rounds, {1 + kw['sub_rounds']} CUDA "
+        f"launches): {out['march2']:.4f} ms a wrapper call, "
+        f"{out['march2_dev']:.4f} ms on the device (CUDA graph), plain "
+        f"version {out['plain_march2']:.2f} ms; {out['steps']} steps, least "
+        f"{out['bound'][0]:.5f} ms, bound by {out['bound'][1]}")
+    say(phase, f"{WIDTH}x{HEIGHT} the {out['frame_calls']} march2 calls of "
+        f"the static frame: {out['march2_frame_dev']:.4f} ms on the device; "
+        f"the whole trace (service included) {out['trace_dev']:.4f} ms on "
+        f"the device (CUDA graph)")
+    say(phase, f"ms/frame, render (v2) {WIDTH}x{HEIGHT}: static "
+        f"{out['static']:.3f}, {N_ORBIT_V2}-camera orbit "
+        f"{out['orbit']:.3f}; device idle share of the static frame "
+        f"{out['idle_static']:.4f} (1 - trace device ms / frame ms)")
     return out
 
 
@@ -1849,6 +2217,17 @@ def main():
     compare_v3_converged(rg, prep, lut, v, 21)
     v3_counts = count_v3_routes(rg, mats, lut, v, 22)
     tv3 = time_v3(rg, mats, lut, v, 23)
+
+    # the v2 march on the 8-chunk world's v1 tables
+    t_v2 = time.perf_counter()
+    rg1, rg1_cpu = v2_tables(rg, 24)
+    v2_err = compare_march2(rg1, v, 25)
+    compare_v2_cpu(rg1_cpu, rg1, mats, v, 26)
+    compare_v2_converged(rg1, rg, prep, v, 27)
+    v2_counts = count_v2_main_path(rg1, mats, v, 28)
+    tv2 = time_v2(rg1, mats, v, 28)
+    say(28, f"phases 24-28 took {time.perf_counter() - t_v2:.1f} s")
+    del rg1, rg1_cpu
     del worlds, cpu_worlds, rg, prep, rg_cpu
     torch.cuda.empty_cache()
 
@@ -1951,6 +2330,11 @@ def main():
         launches=v3_counts["packed", False][0], max_abs_err=v3_err,
         ms=tv3["march3_dev"], plain_ms=tv3["plain_march3"],
         bound=tv3["bound"]))
+    kernels.append(dict(
+        name="march2", source=src + "march2.cu",
+        replaces="voxelraytracing_tpu/ops/wavefront2.py:88",
+        launches=v2_counts[0], max_abs_err=v2_err, ms=tv2["march2_dev"],
+        plain_ms=tv2["plain_march2"], bound=tv2["bound"]))
     line = []
     for k in kernels:
         (bms, by) = k.pop("bound")
@@ -1960,7 +2344,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=None))
     print(json.dumps({"kernels": line}))
-    say(24, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(29, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 chip smoke script refuses to run without a CUDA card."""
 
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import torch
 
 import voxelraytracing_tpu_torch
 from voxelraytracing_tpu_torch import _build
+from voxelraytracing_tpu_torch.ops import wavefront2 as t2
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
@@ -26,10 +28,15 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     """In a fresh interpreter where ``import jax`` fails, every module of
-    the port imports, and none of the JAX package is loaded."""
+    the port and ``chip_smoke.py`` import, and none of the JAX package is
+    loaded; no import statement of ``chip_smoke.py`` names JAX or the JAX
+    package."""
     mods = _port_modules()
-    assert len(mods) >= 18, mods
+    assert len(mods) >= 21, mods
     assert {"voxelraytracing_tpu_torch.ops.prng",
+            "voxelraytracing_tpu_torch.ops.sky",
+            "voxelraytracing_tpu_torch.ops.traverse",
+            "voxelraytracing_tpu_torch.ops.wavefront2",
             "voxelraytracing_tpu_torch.ops.pathtrace3",
             "voxelraytracing_tpu_torch.ops.pathtrace4",
             "voxelraytracing_tpu_torch.ops.wavefront3",
@@ -37,7 +44,7 @@ def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
-        f"for m in {mods!r}:\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and m.split('.')[0] in ('jax', 'jaxlib', 'voxelraytracing_tpu')]\n"
@@ -47,6 +54,9 @@ def test_every_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|voxelraytracing_tpu)\b",
+                         smoke, re.M)
 
 
 def test_kernel_build_is_lazy_and_ieee():
@@ -59,8 +69,8 @@ def test_kernel_build_is_lazy_and_ieee():
     assert "arch=compute_90a,code=sm_90a" in flags
     csrc = ROOT / "voxelraytracing_tpu_torch" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
-    assert set(_build.KERNELS) >= {"march3", "march4", "planes4", "shade4",
-                                   "matfetch4", "pathtrace4"}
+    assert set(_build.KERNELS) >= {"march2", "march3", "march4", "planes4",
+                                   "shade4", "matfetch4", "pathtrace4"}
     for name in _build.KERNELS:
         src, lib = _build.library_path(name)
         assert src.is_file() and lib.parent == ROOT / "build" / "kernels"
@@ -108,10 +118,11 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from voxelraytracing_tpu_torch import convert
-    from voxelraytracing_tpu_torch.ops import camera, wavefront3
+    from voxelraytracing_tpu_torch.ops import camera, wavefront, wavefront3
     from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
 
-    for fn in (wavefront3.build_render_grid3_host,
+    for fn in (wavefront.build_render_grid_host, convert.render_grid_from_numpy,
+               wavefront3.build_render_grid3_host,
                convert.render_grid3_from_numpy, convert.prepared_from_numpy,
                convert.prepared_sparse_from_numpy, camera.generate_rays_raw,
                camera.generate_rays, RenderGrid3Builder,
@@ -120,6 +131,32 @@ def test_entry_points_default_to_the_card():
     # helpers take the device of their caller's tensors
     tile_valid = inspect.signature(wavefront3._tile_valid).parameters
     assert tile_valid["device"].default is inspect.Parameter.empty
+
+
+def test_v2_path_runs_on_its_grids_device():
+    """The v2 march refuses devices other than CUDA and the CPU, and the
+    v2 frame, the sky and the shade take the device of their inputs (no
+    ``device`` argument that could default to the CPU)."""
+    import inspect
+
+    from voxelraytracing_tpu_torch.models import raytracer
+    from voxelraytracing_tpu_torch.ops import sky
+
+    meta = dict(device="meta")
+    st = torch.empty(256, 128, **meta)
+    cache = [torch.empty(1, 8, dtype=torch.int32, **meta),
+             torch.empty(1, 8, 128, dtype=torch.int32, **meta),
+             torch.empty(1, 8, 128, dtype=torch.int32, **meta),
+             torch.empty(1, 64, dtype=torch.int32, **meta),
+             torch.empty(1, 8, 128, dtype=torch.int32, **meta)]
+    row = torch.empty(1, 128, dtype=torch.int32, **meta)
+    state = [st.int() if k not in t2._FLOAT_PLANES else st for k in t2.STATE]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        t2.march2(torch.empty(8, **meta), st, st, st, row, row, *cache,
+                  *state, sub_rounds=2, nb=2, bg_side=32)
+    for fn in (t2.trace_wavefront2, sky.ray_sky, raytracer.shade_hits,
+               raytracer.WavefrontRenderer.render):
+        assert "device" not in inspect.signature(fn).parameters, fn
 
 
 def test_chip_smoke_fails_without_the_port_or_a_card(tmp_path):

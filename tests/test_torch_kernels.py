@@ -4,7 +4,9 @@ march and its start marks (camera rays and per-ray bundles), their
 sparse-table instantiations (on the 4-chunk demo world and a 34-chunk
 scene), the split shade and the material fetch, each equal word for
 word; the v3 march at every launch of whole frames (camera rays, shadow
-bundles, compacted grids, lookahead); sparse frames equal to dense ones;
+bundles, compacted grids, lookahead); the v2 march at every round of
+whole frames and on a round that tells a program-wide ``go`` from a
+per-tile one; sparse frames equal to dense ones;
 the one-launch path tracer, equal where nothing is drawn and within the
 path-tracing bar elsewhere, and equal to the v4 path-tracing route where
 nothing is drawn; each wrapper refusing a wrong dtype or shape.
@@ -472,54 +474,77 @@ def test_sparse_frames_equal_dense_on_the_card(sparse_worlds):
 # ---------------------------------------------------------- the v3 march
 
 
+def _flat(out):
+    """The tensors of a wrapper's output, nested tuples flattened."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x for o in out for x in _flat(o)]
+
+
+def _held(kernel, ref, args, kw):
+    """One call of the wrapper ``kernel`` on the card held against its
+    plain version ``ref`` on the same inputs, word for word. The wrapper
+    counts one call, and ``march2`` ``1 + sub_rounds`` CUDA launches
+    inside it. Returns the kernel's outputs."""
+    before = kernel.launches, getattr(kernel, "cuda_launches", 0)
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before[0] + 1
+    if hasattr(kernel, "cuda_launches"):
+        assert kernel.cuda_launches == before[1] + 1 + kw["sub_rounds"]
+    for a, b in zip(_flat(out), _flat(ref(*args, **kw)), strict=True):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    return out
+
+
 class _Both:
-    """Stands in for ``wavefront3.march3`` in the round loop: launches the
-    kernel, holds it against ``march3_ref`` on the same inputs, and keeps
-    the modes seen (camera/bundle, tile map, lookahead). The wrapper
-    counts through its module name, so ``launches`` is the real one's."""
+    """Stands in for the wrapper ``name`` of ``mod`` in a round loop while
+    active: each call is held against the plain version (:func:`_held`)
+    and its ``(args, kw)`` kept in ``calls``. The wrapper counts through
+    its module name, which the stand-in holds while active, so the
+    counts are forwarded to the real wrapper's."""
 
-    def __init__(self, t3):
-        self.t3, self.kernel, self.seen = t3, t3.march3, []
+    COUNTS = ("launches", "cuda_launches")
 
-    @property
-    def launches(self):
-        return self.kernel.launches
+    def __init__(self, mod, name):
+        self.mod, self.name, self.calls = mod, name, []
+        self.kernel = getattr(mod, name)
 
-    @launches.setter
-    def launches(self, n):
-        self.kernel.launches = n
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return _held(self.kernel, getattr(self.mod, self.name + "_ref"),
+                     args, kw)
 
-    def __call__(self, scal, mc, ts, fl, wa, we, rays=None, tile_map=None,
-                 **kw):
-        before = self.kernel.launches
-        out, want = self.kernel(scal, mc, ts, fl, wa, we, rays, tile_map,
-                                **kw)
-        torch.cuda.synchronize()
-        assert self.kernel.launches == before + 1
-        rout, rwant = self.t3.march3_ref(scal, mc, ts, fl, wa, we, rays,
-                                         tile_map, **kw)
-        for a, b in zip(out, rout):
-            if a.dtype.is_floating_point:
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            assert torch.equal(a, b)
-        assert torch.equal(want, rwant)
-        self.seen.append((rays is not None, tile_map is not None,
-                          kw["lookahead"]))
-        return out, want
+    def __getattr__(self, k):
+        if k not in self.COUNTS:
+            raise AttributeError(k)
+        return getattr(self.kernel, k)
+
+    def __setattr__(self, k, n):
+        if k in self.COUNTS:
+            setattr(self.kernel, k, n)
+        else:
+            super().__setattr__(k, n)
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.kernel)
 
 
 def _v3_launches(fn):
     """Run ``fn`` with every ``march3`` launch held against ``march3_ref``;
-    returns the modes of the launches."""
+    returns the modes of the launches (bundle, tile map, lookahead)."""
     from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 
-    both = _Both(t3)
-    t3.march3 = both
-    try:
+    with _Both(t3, "march3") as both:
         fn()
-    finally:
-        t3.march3 = both.kernel
-    return both.seen
+    return [(a[6] is not None, a[7] is not None, kw["lookahead"])
+            for a, kw in both.calls]
 
 
 @pytest.mark.parametrize("i", range(len(CAMS)))
@@ -565,3 +590,70 @@ def test_march3_rejects_bad_inputs(card_world):
         t3.march3(scal, mc, st, st, st, st, **kw)
     with pytest.raises(ValueError, match="whole number"):
         t3.march3(scal, mc, st[:32], st[:32].int(), st[:32], st[:32], **kw)
+
+
+# ---------------------------------------------------------- the v2 march
+
+
+@pytest.fixture(scope="module")
+def v1_world():
+    """The 4-chunk demo world's v1 tables on the card."""
+    from voxelraytracing_tpu_torch.ops.wavefront import build_render_grid_host
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w = 4
+    grids, cells = demo_chunk_grids_host(
+        noise.make_permutation(7), np.zeros(3, np.int64), w,
+        w * 32 * 0.45, int(w * 32 * 0.28))
+    return build_render_grid_host(grids, cells, np.zeros(3, np.int32), w,
+                                  demo_materials(), device="cuda")
+
+
+@pytest.mark.parametrize("budget", [(48, 24), (12, 48)])
+@pytest.mark.parametrize("i", range(len(CAMS)))
+def test_march2_kernel_equals_plain_version(v1_world, i, budget):
+    """Every round of a 256x128 v2 frame, at the renderer's budget (48
+    rounds of 2 sub-rounds) and trace_wavefront2's default (12 of 4)."""
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+
+    cam = CamData.create(*CAMS[i], 70.0, (256, 128))
+    o, d = generate_rays(cam, np.zeros(3, np.int32), device="cuda")
+    with _Both(t2, "march2") as both:
+        res = t2.trace_wavefront2(v1_world, o, d, width=256, height=128,
+                                  rounds=budget[0], steps_per_round=budget[1])
+    assert [kw["sub_rounds"] for _, kw in both.calls] == \
+        [budget[1] // 12] * budget[0]
+    assert res.hit.device.type == "cuda"
+
+
+def test_march2_go_is_program_wide(v1_world):
+    """The hand-made round of tests/torch_v2_state.py: the stranded ray of
+    a tile that cannot march is demoted because another tile of its
+    program marches."""
+    from torch_v2_state import STRANDED, go_probe
+
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+
+    args, kw = go_probe(v1_world, "cuda")
+    out = _held(t2.march2, t2.march2_ref, args, kw)
+    assert int(args[14][STRANDED]) == 1 and int(out[3][STRANDED]) == 0
+
+
+def test_march2_rejects_bad_inputs(v1_world):
+    from torch_v2_state import go_probe
+
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+
+    args, kw = go_probe(v1_world, "cuda")
+    bad = list(args)
+    bad[9] = args[9][:, :32].contiguous()
+    with pytest.raises(ValueError, match="bid"):
+        t2.march2(*bad, **kw)
+    bad = list(args)
+    bad[12] = args[12].float()
+    with pytest.raises(ValueError, match="active"):
+        t2.march2(*bad, **kw)
+    with pytest.raises(ValueError, match="sub-round"):
+        t2.march2(*args, **dict(kw, sub_rounds=0))

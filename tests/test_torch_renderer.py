@@ -13,6 +13,7 @@ The port's renderer must equal JAX's on both routes: packed words exact,
 except that a sky channel may differ by 1/255 (the two libms may round
 ``** 0.35`` apart). The v3 route's warm token steers its service, so a
 second frame of the same renderer is held against JAX's second frame.
+``render`` on a RenderGrid3 returns that packed frame and its f32 unpack.
 """
 
 import numpy as np
@@ -78,6 +79,11 @@ def world():
             jrg, cam, mats.color, sun_pos=SUN, show_steps=steps,
             steps_per_round=48, step_cap=500, fused=True))
     cfg = CASES["steps"][0]
+    # render() on a RenderGrid3: render_packed's cold frame, unpacked
+    gold["render"] = [np.asarray(x) for x in JWavefrontRenderer(
+        mats, show_step_count=True).render(
+            jrg, JCamData.create(cfg[0], cfg[1], 70.0, SIZE),
+            JRenderSettings(sun_pos=SUN))]
     r = JWavefrontRenderer(mats, v3_rounds=1)
     gold["one_round"] = np.asarray(r.render_packed(
         jrg, JCamData.create(cfg[0], cfg[1], 70.0, SIZE),
@@ -128,6 +134,22 @@ def test_render_packed_routes_match_jax(world, case, tracer):
     again = r.render_packed(trg, cam, RenderSettings(sun_pos=SUN))
     np.testing.assert_array_equal(again.numpy().view(np.uint32),
                                   gold.get((case, tracer, "warm"), img))
+
+
+def test_render_on_a_render_grid3_matches_jax(world):
+    """``render`` on a RenderGrid3 draws ``render_packed``'s frame and
+    unpacks it to f32 (each channel / 255), as JAX's does."""
+    trg, mats, gold = world
+    cfg = CASES["steps"][0]
+    img, packed = WavefrontRenderer(mats, show_step_count=True).render(
+        trg, CamData.create(cfg[0], cfg[1], 70.0, SIZE),
+        RenderSettings(sun_pos=SUN))
+    jimg, jpacked = gold["render"]
+    np.testing.assert_array_equal(jpacked, gold["steps", "v2"])
+    packed = packed.numpy().view(np.uint32)
+    np.testing.assert_array_equal(packed, jpacked)
+    assert img.dtype == torch.float32 and tuple(img.shape) == SIZE[::-1] + (3,)
+    np.testing.assert_array_equal(img.numpy(), jimg)
 
 
 def test_default_route_at_one_round_matches_jax(world):

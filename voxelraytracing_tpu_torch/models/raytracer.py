@@ -1,11 +1,16 @@
 """The primary ray tracer's user-facing surface.
 
-Port of ``RenderSettings``, ``WavefrontRenderer.render_packed`` and
-``to_srgb8`` from ``voxelraytracing_tpu/models/raytracer.py``. The renderer
-routes frames as the JAX one does: ``tracer="v4"`` draws the split v4 frame
+Port of ``RenderSettings``, ``shade_hits``, ``WavefrontRenderer``
+(``render``, ``render_packed``) and ``to_srgb8`` from
+``voxelraytracing_tpu/models/raytracer.py``. The renderer routes frames as
+the JAX one does: on a :class:`~..ops.wavefront3.RenderGrid3`,
+``tracer="v4"`` draws the split v4 frame
 (:func:`~..ops.wavefront4.render_frame4`, ``fused=False``), any other
 tracer the v3 frame (:func:`~..ops.wavefront3.render_frame3`) at
-``v3_rounds`` service rounds.
+``v3_rounds`` service rounds; on a v1
+:class:`~..ops.wavefront.RenderGrid`, ``render`` marches the v2 frame
+(:func:`~..ops.wavefront2.trace_wavefront2`) and shades it with
+:func:`shade_hits`.
 """
 
 from dataclasses import dataclass
@@ -13,11 +18,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.camera import CamData
+from ..core.constants import MAX_RAY_STEPS
+from ..ops.camera import CamData, _f32, generate_rays_raw
+from ..ops.sky import ray_sky
+from ..ops.traverse import TraceResult
 
 STEP_CAP = 500  # per-ray step budget (ray_tracer.wgsl:220)
 STEPS_PER_ROUND = 48  # sets the show_step_count heatmap scale, as in JAX
 TRACERS = ("v1", "v2", "v4")
+WATER_OVERLAY_COLOR = (0.2, 0.5, 1.0)
+# v2 progress is bounded by cache-service rounds, not steps: render gives
+# it the renderer's full round count at this per-round step budget (48
+# rounds x 24 steps covers the reference's 500-step cap,
+# ray_tracer.wgsl:220, with service headroom)
+V2_STEPS_PER_ROUND = 24
 
 
 @dataclass(frozen=True)
@@ -34,6 +48,39 @@ class RenderSettings:
     shadow_ambient: float = 0.4  # light retained in shadowed areas
 
 
+def shade_hits(rs: TraceResult, dirs, origin, materials, sky_color, sun_pos,
+               sun_intensity, world_min, show_step_count=False,
+               max_steps=MAX_RAY_STEPS):
+    """Composite a traced frame into linear RGB f32[..., 3] on the device of
+    ``dirs`` (ray_tracer.wgsl:131-157, 291-316): face tints, the step
+    heatmap, the sky where nothing was hit, the water overlay."""
+    dev = dirs.device
+    table = torch.as_tensor(np.asarray(materials.color, np.float32)).to(dev)
+    color = table[rs.voxel.long()]
+    # face tints: X faces x0.5, Z faces x0.7, bottom faces x0.2
+    color = torch.where((rs.norm[..., 0] != 0.0)[..., None], color * 0.5,
+                        color)
+    color = torch.where((rs.norm[..., 2] != 0.0)[..., None], color * 0.7,
+                        color)
+    color = torch.where((rs.norm[..., 1] == -1.0)[..., None], color * 0.2,
+                        color)
+    if show_step_count:
+        f = torch.clamp(rs.steps.to(torch.float32) / _f32(max_steps, dev),
+                        0.0, 1.0)
+        color = f[..., None].expand(color.shape)
+
+    sky = ray_sky(dirs, origin, sky_color, sun_pos, sun_intensity, world_min)
+    out = torch.where(rs.hit[..., None], color, sky)
+
+    # water overlay (ray_tracer.wgsl:137-141)
+    factor = torch.clamp(rs.water_dist / _f32(14.0, dev), 0.8, 1.0)
+    overlay = torch.tensor(WATER_OVERLAY_COLOR, dtype=torch.float32).to(dev)
+    wet = (rs.water_dist != 0.0)[..., None]
+    return torch.where(
+        wet, out * (1.0 - factor[..., None]) + overlay * factor[..., None],
+        out)
+
+
 def to_srgb8(img):
     """Linear f32 frame -> uint8 RGB on the host (the rgba8unorm store
     clamps identically)."""
@@ -42,19 +89,24 @@ def to_srgb8(img):
 
 
 class WavefrontRenderer:
-    """Fast-path renderer over a :class:`~..ops.wavefront3.RenderGrid3`:
-    the march, an optional hard-shadow pass and the shade, emitting packed
-    RGBA8, with the JAX renderer's constructor and routing.
+    """Fast-path renderer with the JAX renderer's constructor and routing.
 
-    ``tracer="v4"``: the split v4 frame at its default 64 rounds. Any other
-    tracer (the default ``"v2"``, or ``"v1"``): the v3 route,
-    ``render_frame3`` at ``v3_rounds`` service rounds, warm-started from
-    the last v3 frame of the same size. Both routes march under
+    :meth:`render_packed` (a :class:`~..ops.wavefront3.RenderGrid3`: the
+    march, an optional hard-shadow pass and the shade, emitting packed
+    RGBA8): ``tracer="v4"`` draws the split v4 frame at its default 64
+    rounds; any other tracer (the default ``"v2"``, or ``"v1"``) the v3
+    route, ``render_frame3`` at ``v3_rounds`` service rounds, warm-started
+    from the last v3 frame of the same size. Both march under
     ``v3_step_cap`` (the reference kernel's 500-step cap,
     ray_tracer.wgsl:220) and scale the step heatmap to ``rounds *
-    (v3_steps_per_round // 8) * 8``. ``max_rounds`` and ``inner_steps``
-    set the heatmap of the v1 ``render`` path, which is not ported; they
-    are kept for the signature.
+    (v3_steps_per_round // 8) * 8``.
+
+    :meth:`render` returns an f32 image: a RenderGrid3 goes through
+    :meth:`render_packed`; a v1 :class:`~..ops.wavefront.RenderGrid` with
+    ``tracer="v2"`` through the v2 march (``max_rounds`` rounds of 24
+    steps) and :func:`shade_hits`, whose heatmap scale is ``max_rounds *
+    inner_steps``. The v1 tracer is not ported (``tracer="v1"`` raises on
+    a v1 grid).
     """
 
     def __init__(self, materials, show_step_count=False, max_rounds=48,
@@ -111,3 +163,48 @@ class WavefrontRenderer:
         self._cache = tok
         self._cache_size = key
         return img
+
+    def _shade(self, wf, dirs, origin, world_min, s):
+        """Shade a v2 trace (the JAX renderer's ``_shade_impl``)."""
+        pos = origin[None, None] + dirs * wf.t[..., None]
+        rs = TraceResult(hit=wf.hit, voxel=wf.voxel, norm=wf.norm, pos=pos,
+                         water_dist=wf.water_dist, steps=wf.steps)
+        return shade_hits(rs, dirs, origin, self.materials, s.sky_color,
+                          s.sun_pos, s.sun_intensity, world_min,
+                          show_step_count=self.show_step_count,
+                          max_steps=self.max_rounds * self.inner_steps)
+
+    def render(self, rgrid, cam: CamData, settings: RenderSettings = None):
+        """One frame -> ``(f32[H,W,3] image, trace result)`` on the grid's
+        device.
+
+        With a RenderGrid3 the trace result is the packed RGBA8 frame of
+        :meth:`render_packed` and the image is unpacked from it. With a v1
+        RenderGrid it is the v2 march's
+        :class:`~..ops.wavefront.WavefrontResult`."""
+        from ..ops.wavefront2 import trace_wavefront2
+        from ..ops.wavefront3 import RenderGrid3
+
+        s = settings or RenderSettings()
+        if isinstance(rgrid, RenderGrid3):
+            packed = self.render_packed(rgrid, cam, s)
+            img = torch.stack([(packed >> sh) & 0xFF for sh in (0, 8, 16)],
+                              dim=-1).to(torch.float32)
+            return img / _f32(255.0, img.device), packed
+        if self.tracer != "v2":
+            raise NotImplementedError(
+                f"tracer={self.tracer!r} on a v1 RenderGrid: the v1 tracer "
+                "(ops/wavefront.py:trace_wavefront) is not ported; use "
+                "tracer='v2'")
+        w, h = cam.proj_size
+        dev = rgrid.bwin.device
+        # the directions do not depend on world_min; the origin is
+        # cam.pos - world_min in f32, computed on the card
+        _, dirs = generate_rays_raw(cam.inv_view, cam.inv_proj, cam.pos, w, h,
+                                    np.zeros(3, np.float32), device=dev)
+        origin = (torch.as_tensor(np.asarray(cam.pos, np.float32)).to(dev)
+                  - rgrid.world_min.to(torch.float32))
+        wf = trace_wavefront2(rgrid, origin, dirs, width=w, height=h,
+                              rounds=self.max_rounds,
+                              steps_per_round=V2_STEPS_PER_ROUND)
+        return self._shade(wf, dirs, origin, rgrid.world_min, s), wf

@@ -1,5 +1,5 @@
-"""Device compute of the port: camera, tables, the v3 and v4 marches, the
-path tracers.
+"""Device compute of the port: camera, tables, the v2, v3 and v4 marches,
+the sky, the path tracers.
 
 The rendering entry points are re-exported here, as the JAX package's
 ``ops`` does for those of its entry points that are ported.
@@ -8,6 +8,9 @@ The rendering entry points are re-exported here, as the JAX package's
 from .camera import CamData, generate_rays
 from .pathtrace3 import path_trace3, path_trace4
 from .pathtrace4 import path_trace_fused4
+from .sky import ray_sky
+from .wavefront import RenderGrid, build_render_grid_host
+from .wavefront2 import trace_wavefront2
 from .wavefront3 import (
     build_render_grid3_host,
     empty_frame_cache,
@@ -27,6 +30,8 @@ from .wavefront4 import (
 __all__ = [
     "CamData",
     "generate_rays",
+    "RenderGrid",
+    "build_render_grid_host",
     "build_render_grid3_host",
     "empty_frame_cache",
     "path_trace3",
@@ -35,8 +40,10 @@ __all__ = [
     "PreparedGrid4Sparse",
     "path_trace_fused4",
     "prepare_grid4",
+    "ray_sky",
     "render_frame3",
     "render_frame4",
+    "trace_wavefront2",
     "trace_wavefront3",
     "trace_wavefront3_rays",
     "trace_wavefront4",

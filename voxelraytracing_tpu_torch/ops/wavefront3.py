@@ -34,7 +34,9 @@ from .wavefront import (
     _BIG,
     _BIG_IV,
     WavefrontResult,
+    _brick_tables_np,
     _cdiv,
+    _i32,
     render_id_maps,
 )
 
@@ -98,14 +100,6 @@ class RenderGrid3(NamedTuple):
     n_liquid: int
     size_voxels: int
     palettes_ok: bool
-
-
-def _i32(a, device):
-    """NumPy integer words -> int32 tensor (a copy) with the same bits."""
-    a = np.asarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.tensor(a.astype(np.int32, copy=False), device=device)
 
 
 # ----------------------------------------------------------------- builders
@@ -225,36 +219,6 @@ def build_render_grid3_host(grids, cells, world_min, size_in_chunks,
         size_voxels=v,
         palettes_ok=bool(palettes_ok),
     )
-
-
-def _brick_tables_np(grids, cells, w, to_render, vpad):
-    """The v1 brick tables of ops/wavefront.py:build_render_grid_host
-    (:762-840): ``brick_dir`` int32[(vpad/4)³], the row of each 4³ brick
-    of an installed chunk (-1 elsewhere), and ``bricks`` u32[B·512, 16],
-    each row the brick's 64 render ids, four bytes a word."""
-    b = grids.shape[0]
-    rg = to_render[grids]
-    valid = cells >= 0
-    cx, cy, cz = cells % w, (cells // w) % w, cells // (w * w)
-    bg_side = vpad // BRICK
-    ii = np.arange(8)
-    gbx = ii[None, :, None, None] + (cx * 8)[:, None, None, None]
-    gby = ii[None, None, :, None] + (cy * 8)[:, None, None, None]
-    gbz = ii[None, None, None, :] + (cz * 8)[:, None, None, None]
-    gflat = (gbx + gby * bg_side + gbz * bg_side * bg_side).astype(np.int64)
-
-    bview = rg.reshape(b, 8, BRICK, 8, BRICK, 8, BRICK)
-    bc = bview.transpose(0, 1, 3, 5, 6, 4, 2).reshape(b * 512, 16, 4)
-    bricks = (
-        bc.astype(np.uint32) << (np.arange(4, dtype=np.uint32) * 8)
-    ).sum(axis=-1, dtype=np.uint64).astype(np.uint32)
-
-    li = (ii[:, None, None] * 64 + ii[None, :, None] * 8 + ii[None, None, :])
-    rows = np.arange(b, dtype=np.int64)[:, None, None, None] * 512 + li[None]
-    brick_dir = np.full(bg_side ** 3, -1, np.int32)
-    ok = np.repeat(valid, 512)
-    brick_dir[gflat.reshape(-1)[ok]] = rows.reshape(-1)[ok].astype(np.int32)
-    return brick_dir, bricks
 
 
 def _gs_for(nw):
@@ -817,10 +781,11 @@ def march3_ref(scal, mc, ts, fl, wa, we, rays=None, tile_map=None, *, nw,
 
 def _slot_of(x, ids):
     """The cache slot holding ``x`` (the last of equal ones, as the JAX
-    kernel's compare chain leaves it), -1 where none: ``ids`` [n, k]."""
-    k = torch.arange(ids.shape[1], dtype=torch.int32, device=x.device)
-    eq = (x[:, None] == ids) & (ids >= 0)
-    return torch.where(eq, k, -1).amax(dim=1)
+    kernel's compare chain leaves it), -1 where none: ``ids`` [..., k],
+    broadcast against ``x[..., None]``."""
+    k = torch.arange(ids.shape[-1], dtype=torch.int32, device=x.device)
+    eq = (x[..., None] == ids) & (ids >= 0)
+    return torch.where(eq, k, -1).amax(dim=-1)
 
 
 def _classify3(Q, t, flat, wid, sid, nw, ns, gs, need_sslot=True):
