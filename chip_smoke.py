@@ -4,14 +4,15 @@ Drives the port's paths on the demo worlds of bench.py and on a streamed
 strip of demo terrain, through the entry points a user calls
 (``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
 ``trace_wavefront3``, ``WavefrontRenderer.render_packed`` and
-``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``
-and ``RenderGrid3Builder``), after building the
+``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``,
+``RenderGrid3Builder`` and the probe scripts' ``main``), after building the
 hand-written CUDA kernels from ``voxelraytracing_tpu_torch/csrc`` (one
 nvcc per source, all at once):
 
   1. the card's name and power limit (exits non-zero without a CUDA card);
   2. build the kernels; print registers, shared memory and spills of each
-     ``__global__``;
+     ``__global__`` (the four ``march_fused4_kernel`` instantiations
+     among them);
   3. the 8-chunk world (256³ voxels), built straight onto the card;
   4. the fused primary frame at 1920x1080, bench camera + 48 orbit
      cameras: kernel vs plain PyTorch version on the card, flags and
@@ -42,9 +43,12 @@ nvcc per source, all at once):
      kernel (1080p), the fused and split shadowed frames, each kernel
      alone and the plain versions (1080p and 720p), with the step counts
      the bounds need; each kernel both as back-to-back wrapper calls and
-     as the device time of the same calls replayed from a CUDA graph;
- 11. phases 4 and 10's primary timing on the 16-chunk world (512³ voxels,
-     117 MB of tables), bench camera + 12 orbit cameras;
+     as the device time of the same calls replayed from a CUDA graph; the
+     SIMT efficiency of the timed static frames (one thread a pixel, warps
+     of 16x2 and of 8x4 pixels, from the step counts in the flags);
+ 11. phases 4 and 10's primary timing and SIMT efficiency on the 16-chunk
+     world (512³ voxels, 117 MB of tables), bench camera + 12 orbit
+     cameras;
  12. the path tracers on the 8-chunk world at 1920x1080 (config3's frame:
      config2's sun, 500-step cap), bench camera + 12 orbit cameras, on the
      demo materials and on the mirror table of tests/test_pathtrace4.py
@@ -86,8 +90,8 @@ nvcc per source, all at once):
  18. timing: the streaming step (set_chunks + prepared of 128 chunks,
      config4b) at 30 chunks dense and 80 sparse; the 80-chunk fly-through
      (frames/s, ms/frame, its builder and frame shares); the sparse
-     kernels on a static 80-chunk frame with their least times and the
-     rows they read; the sparse tables' size;
+     kernels on a static 80-chunk frame with their least times, the rows
+     they read and the frame's SIMT efficiency; the sparse tables' size;
  19. the v3 round-serviced march (``render_frame3``, the renderer's
      default route) on the 8-chunk world: ``march3`` vs ``march3_ref`` on
      the inputs of every launch of whole frames, states, flags and wants
@@ -129,7 +133,13 @@ nvcc per source, all at once):
      of a frame's calls and of its whole trace, the plain version, the
      least time, and ms/frame of ``render`` (v2), static and orbit, with
      the device idle share;
- 29. the script's total seconds.
+ 29. the primitive probes (``voxelraytracing_tpu_torch.experiments``, the
+     port of the TPU probe scripts under ``experiments/``): each script's
+     main path at the JAX shapes, launches counted; each of the six probe
+     kernels vs its plain version on random inputs at those shapes, bit
+     for bit; device ms of each kernel, its plain version and its
+     yardstick library call, and its least time;
+ 30. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -554,6 +564,8 @@ def time_primary(rg, prep, lut, mats, v, phase, n_orbit=N_ORBIT):
                  1) for c in (0, n_orbit // 3, 2 * n_orbit // 3))
     fl = march_fused4(*sa, **skw)[1]
     out["steps"] = int(((fl >> 5) & 0xFFF).sum())
+    say_simt(phase, f"{v}^3 world, static {WIDTH}x{HEIGHT} primary",
+             (fl >> 5) & 0xFFF)
     out["rows"] = int(hit_rows_of(rg, sa, skw, fl).numel())
     rays = WIDTH * HEIGHT
     for k in ("static", "orbit"):
@@ -642,6 +654,8 @@ def time_shadows(rg, prep, lut, v, size, phase):
     out["steps_primary"] = int(((fl >> 5) & 0xFFF).sum())
     sfl = p["shadow"][1]
     out["steps_shadow"] = int(((sfl >> 5) & 0xFFF).sum())
+    say_simt(phase, f"{w}x{h} static, both legs a pixel",
+             ((fl >> 5) & 0xFFF) + ((sfl >> 5) & 0xFFF))
     ns = t4._world_dims(swc, wmp)[1]
     prim = hit_rows_of(rg, sa, skw, fl)
     shad = hit_rows(swc, bundle[0], bundle[1], p["shadow"][0],
@@ -680,6 +694,35 @@ def bound(bytes_moved, ops):
     ``ops`` at the FP32 rate."""
     t_b, t_o = bytes_moved / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# warp footprints (pixels wide x high) whose SIMT efficiency phases 10, 11
+# and 18 print: 16x2 (a warp of a 16x8 tile) and 8x4 (march4.cu's)
+FOOTPRINTS = ((16, 2), (8, 4))
+
+
+def simt_efficiency(steps, fw, fh):
+    """SIMT efficiency of one thread a pixel with ``fw`` x ``fh`` pixels a
+    warp, from each pixel's march steps: the mean over warps that step of
+    (sum of the steps) / (32 x the warp's largest), and the step-weighted
+    (sum of all steps) / (sum of 32 x each warp's largest)."""
+    h, w = steps.shape
+    s = steps[:h - h % fh, :w - w % fw].double().reshape(
+        h // fh, fh, w // fw, fw).permute(0, 2, 1, 3).reshape(-1, fw * fh)
+    mx, tot = s.max(1).values, s.sum(1)
+    m = mx > 0
+    return (float((tot[m] / (32 * mx[m])).mean()),
+            float(tot.sum() / (32 * mx.sum())))
+
+
+def say_simt(phase, what, steps):
+    """Print the SIMT efficiency of a frame's per-pixel steps for each of
+    :data:`FOOTPRINTS`."""
+    eff = {f: simt_efficiency(steps, *f) for f in FOOTPRINTS}
+    say(phase, f"{what}: SIMT efficiency of one thread a pixel (mean over "
+        f"warps; step-weighted) " + ", ".join(
+            f"{fw}x{fh} {m:.4f}; {wt:.4f}" for (fw, fh), (m, wt)
+            in eff.items()))
 
 
 def shadow_bounds(sh):
@@ -1432,8 +1475,10 @@ def time_sparse(strip, b, lut, phase):
         lambda: t4.march_planes4_ref(sc, g, swc, wmp, **dims)) + plain_ms(
         lambda: t4.march_planes4_ref(sc, g, swc, wmp, *p["bundle"], **dims))
     px = WIDTH * HEIGHT
-    steps_p = int(((p["planes"][1] >> 5) & 0xFFF).sum())
-    steps_s = int(((p["shadow"][1] >> 5) & 0xFFF).sum())
+    stp_p, stp_s = ((p[k][1] >> 5) & 0xFFF for k in ("planes", "shadow"))
+    steps_p, steps_s = int(stp_p.sum()), int(stp_s.sum())
+    say_simt(phase, "static W=80 frame, primary", stp_p)
+    say_simt(phase, "static W=80 frame, both legs a pixel", stp_p + stp_s)
     sf = [float(x) for x in sc.cpu().numpy()]
     rays = t4._camera_rays(sf, *t4._pixels(p["dims"]["height"],
                                            p["dims"]["width"], sc.device))
@@ -2136,6 +2181,111 @@ def time_v2(rg1, mats, v, phase):
     return out
 
 
+# ------------------------------------------------------------ the probes
+
+PROBE_SRC = "voxelraytracing_tpu_torch/csrc/probes3.cu"
+
+
+def phase_probes(phase):
+    """The primitive probes (``voxelraytracing_tpu_torch.experiments``):
+    their scripts' main paths driven with the counts set to 0 just before
+    and read just after; each kernel vs its plain version at the JAX
+    shapes on random inputs, bit for bit; device ms of each kernel (CUDA
+    graph), its plain version, its yardstick library call and its least
+    time. Returns the probes' entries of the kernels line."""
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+    from voxelraytracing_tpu_torch.experiments import v3_probe_subgather as ps
+
+    kernels = pp.KERNELS + ps.KERNELS
+    for k in kernels:
+        k.launches = 0
+    pp.main()
+    for which in ("vec", "loop"):
+        ps.main([which])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    say(phase, f"probe scripts' main paths: launches {launches}")
+    check(all(launches.values()), "a probe kernel was not launched")
+
+    # random full-range inputs at the scripts' shapes
+    g = torch.Generator(device="cuda").manual_seed(STRIP_SEED)
+
+    def bits(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             device="cuda", dtype=torch.int64).int()
+
+    tab = bits(pp.NROWS, pp.ROW)
+    ids = torch.randint(0, pp.NROWS, (pp.NB, pp.IDS), generator=g,
+                        device="cuda", dtype=torch.int32)
+    idx = torch.randint(0, pp.NROWS, (ps.BLK, pp.ROW), generator=g,
+                        device="cuda", dtype=torch.int32)
+    idx64 = idx.long()
+    planes = tuple(bits(pp.T, pp.ROW).view(torch.float32) for _ in range(7))
+    outs = tuple(torch.empty_like(x) for x in planes)
+    v = tab[:pp.BLK]
+    rows = (int(torch.unique(ids).numel()),
+            int(torch.unique(idx[:, 0]).numel()),
+            int(torch.unique(idx * pp.ROW
+                             + torch.arange(pp.ROW, device="cuda")).numel()))
+    row_b = pp.ROW * 4
+    gather_b = ids.numel() * (4 + row_b) + rows[0] * row_b
+    pr, sg = "experiments/v3_probe_prims.py:", "experiments/v3_probe_subgather.py:"
+    probes = [
+        # name, replaces, kernel, plain, library call, (bytes, ops)
+        ("gather_rows_smem", pr + "31", lambda: pp.gather_rows_smem(ids, tab),
+         lambda: pp.gather_rows_ref(ids, tab),
+         lambda: tab.index_select(0, ids.reshape(-1)), (gather_b, 0)),
+        ("gather_rows_async", pr + "55",
+         lambda: pp.gather_rows_async(ids, tab),
+         lambda: pp.gather_rows_ref(ids, tab),
+         lambda: tab.index_select(0, ids.reshape(-1)), (gather_b, 0)),
+        ("extract_sum", pr + "77", lambda: pp.extract_sum(v),
+         lambda: pp.extract_sum_ref(v),
+         lambda: v[:, 0].sum(dtype=torch.int32), (pp.BLK * 4 + 8 * row_b,
+                                                  pp.BLK - 1)),
+        ("pass7", pr + "103", lambda: pp.pass7(planes),
+         lambda: pp.pass7_ref(planes),
+         lambda: [o.copy_(x) for o, x in zip(outs, planes)],
+         (2 * 7 * pp.T * row_b, 0)),
+        ("col_gather", sg + "25", lambda: ps.col_gather(tab, idx),
+         lambda: ps.col_gather_ref(tab, idx),
+         lambda: torch.gather(tab, 0, idx64),
+         (2 * idx.numel() * 4 + rows[2] * 4, 0)),
+        ("row_loop", sg + "25", lambda: ps.row_loop(tab, idx),
+         lambda: ps.row_loop_ref(tab, idx),
+         lambda: tab.index_select(0, idx[:, 0]),
+         (ps.BLK * 4 + rows[1] * row_b + idx.numel() * 4, 0)),
+    ]
+    entries, bad = [], {}
+    for name, rep, kern, ref, lib, (nb, ops) in probes:
+        got, want = flat_outputs(kern()), flat_outputs(ref())
+        bad[name] = sum(words_differ(a, b) for a, b in zip(got, want))
+        err = max(float((a.view(torch.int32).double()
+                         - b.view(torch.int32).double()).abs().max())
+                  for a, b in zip(got, want))  # of the words' values
+        ms = graph_ms(lambda i: kern(), N_ORBIT)
+        lib_ms = graph_ms(lambda i: lib(), N_ORBIT)
+        p_ms = plain_ms(ref)
+        bms, by = bound(nb, ops)
+        entries.append(dict(name=name, source=PROBE_SRC, replaces=rep,
+                            launches=launches[name], max_abs_err=err, ms=ms,
+                            plain_ms=p_ms, bound=(bms, by), library_ms=lib_ms))
+        say(phase, f"{name}: {ms:.5f} ms on the device, plain {p_ms:.3f} ms, "
+            f"library call {lib_ms:.5f} ms, least {bms:.6f} ms, bound by "
+            f"{by}; words differing from plain {bad[name]}")
+    pipe = graph_ms(lambda i: pp.gather_rows_async(ids, tab, pipelined=True),
+                    N_ORBIT)
+    check(torch.equal(pp.gather_rows_async(ids, tab, pipelined=True),
+                      pp.gather_rows_ref(ids, tab)),
+          "pipelined gather_rows_async disagrees with its plain version")
+    say(phase, f"gather_rows_async pipelined (16 rows in flight): {pipe:.5f} "
+        f"ms on the device; distinct rows gathered {rows[0]} of "
+        f"{ids.numel()}")
+    check(not any(bad.values()), "a probe kernel disagrees with its plain "
+          "version")
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2242,6 +2392,9 @@ def main():
     del b80
     torch.cuda.empty_cache()
 
+    # the primitive probes at the JAX scripts' shapes
+    probe_entries = phase_probes(29)
+
     px = WIDTH * HEIGHT
     b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,
                       t8["steps"] * STEP_OPS + px * PIXEL_OPS)
@@ -2335,6 +2488,7 @@ def main():
         replaces="voxelraytracing_tpu/ops/wavefront2.py:88",
         launches=v2_counts[0], max_abs_err=v2_err, ms=tv2["march2_dev"],
         plain_ms=tv2["plain_march2"], bound=tv2["bound"]))
+    kernels += probe_entries
     line = []
     for k in kernels:
         (bms, by) = k.pop("bound")
@@ -2342,9 +2496,9 @@ def main():
                          replaces=k["replaces"], launches=k["launches"],
                          max_abs_err=k["max_abs_err"], ms=k["ms"],
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
-                         library_ms=None))
+                         library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": line}))
-    say(29, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(30, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,10 @@ def test_every_module_imports_without_jax():
             "voxelraytracing_tpu_torch.ops.pathtrace3",
             "voxelraytracing_tpu_torch.ops.pathtrace4",
             "voxelraytracing_tpu_torch.ops.wavefront3",
-            "voxelraytracing_tpu_torch.world.render_grid"} <= set(mods)
+            "voxelraytracing_tpu_torch.world.render_grid",
+            "voxelraytracing_tpu_torch.experiments.v3_probe_prims",
+            "voxelraytracing_tpu_torch.experiments.v3_probe_subgather",
+            } <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -70,17 +73,53 @@ def test_kernel_build_is_lazy_and_ieee():
     csrc = ROOT / "voxelraytracing_tpu_torch" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
     assert set(_build.KERNELS) >= {"march2", "march3", "march4", "planes4",
-                                   "shade4", "matfetch4", "pathtrace4"}
+                                   "shade4", "matfetch4", "pathtrace4",
+                                   "probes3"}
     for name in _build.KERNELS:
         src, lib = _build.library_path(name)
         assert src.is_file() and lib.parent == ROOT / "build" / "kernels"
-        assert '#include "march4_common.cuh"' in src.read_text()
+        # the march kernels share one header; the probes march nothing
+        if name != "probes3":
+            assert '#include "march4_common.cuh"' in src.read_text()
         for fn in _build._SIGNATURES[name]:
             assert f'extern "C" int {fn}(' in src.read_text()
     if shutil.which("nvcc") is None and not Path(
             "/usr/local/cuda/bin/nvcc").is_file():
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.nvcc_path()
+
+
+def test_probes_import_without_jax():
+    """The probe package imports in a fresh interpreter where ``import
+    jax`` fails, builds nothing, names none of the JAX probe scripts'
+    modules, and gives each of its six kernel wrappers a launch counter at
+    0; its ``main()`` refuses to run without a card."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from voxelraytracing_tpu_torch import _build\n"
+        "from voxelraytracing_tpu_torch.experiments import (\n"
+        "    v3_probe_prims as pp, v3_probe_subgather as ps)\n"
+        "ks = pp.KERNELS + ps.KERNELS\n"
+        "assert [k.launches for k in ks] == [0] * 6, ks\n"
+        "assert _build._libs == {}\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'voxelraytracing_tpu', 'experiments')]\n"
+        "assert not bad, bad\n"
+        "if not torch.cuda.is_available():\n"
+        "    for main, argv in ((pp.main, ()), (ps.main, (['vec'],))):\n"
+        "        try:\n"
+        "            main(*argv)\n"
+        "        except RuntimeError as e:\n"
+        "            assert 'CUDA card' in str(e)\n"
+        "        else:\n"
+        "            sys.exit('main ran without a card')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_wrapper_refuses_other_devices():

@@ -123,6 +123,26 @@ def test_kernel_step_cap_and_heatmap(card_world, cap):
         assert int(((fl >> 5) & 0xFFF).max()) == cap
 
 
+@pytest.mark.parametrize("shadows", [False, True])
+def test_kernel_nan_direction_takes_no_step(card_world, shadows):
+    """Rays with no direction (the camera basis of ``scal`` zeroed, so
+    each direction is 0/0) take no step, as in the plain version, whose
+    bounds test is false on a NaN position. The march's words (flags) are
+    compared, not the colour: the sky shade of a NaN direction differs,
+    since CUDA's fminf/fmaxf drop a NaN that torch.clamp keeps (ROADMAP
+    queue 3)."""
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, (64, 32))
+    args, fkw = t4.frame_args(rg, cam, mats.color, prepared=prep,
+                              step_cap=500, sun_pos=SUN, shadows=shadows)
+    scal = args[0].clone()
+    scal[12:21] = 0.0
+    args = (scal,) + tuple(args[1:])
+    _, fl = t4.march_fused4(*args, **fkw)
+    _, rfl = t4.march_fused4_ref(*args, **fkw)
+    assert int(rfl.abs().sum()) == 0 and torch.equal(fl, rfl)
+
+
 @pytest.mark.parametrize("i", range(len(CAMS)))
 @pytest.mark.parametrize("size", [(200, 120), (72, 36)])
 def test_fused_shadow_kernel_equals_plain_version(card_world, i, size):
@@ -657,3 +677,94 @@ def test_march2_rejects_bad_inputs(v1_world):
         t2.march2(*bad, **kw)
     with pytest.raises(ValueError, match="sub-round"):
         t2.march2(*args, **dict(kw, sub_rounds=0))
+
+
+# ------------------------------------------------------------ the probes
+
+
+@pytest.fixture(scope="module")
+def probe_data():
+    """The probe scripts' shapes on the card: a full-range [4096, 128]
+    table, [254, 16] and [64, 128] ids, seven [32512, 128] planes of
+    random bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    rng = np.random.default_rng(11)
+    tab = rng.integers(-2 ** 31, 2 ** 31, (pp.NROWS, 128), dtype=np.int64)
+    ids = rng.integers(0, pp.NROWS, (pp.NB, 16))
+    idx = rng.integers(0, pp.NROWS, (64, 128))
+    planes = rng.integers(0, 2 ** 32, (7, pp.T, 128), dtype=np.uint64)
+    dev = dict(device="cuda")
+    return dict(
+        tab=torch.tensor(tab.astype(np.int32), **dev),
+        ids=torch.tensor(ids.astype(np.int32), **dev),
+        idx=torch.tensor(idx.astype(np.int32), **dev),
+        planes=tuple(torch.tensor(p.astype(np.uint32).view(np.float32), **dev)
+                     for p in planes))
+
+
+def _counted(fn, *args, **kw):
+    before = fn.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("kind", ["smem", "async", "async_pipelined"])
+def test_row_gather_kernels_equal_plain_version(probe_data, kind):
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    tab, ids = probe_data["tab"], probe_data["ids"]
+    fn = pp.gather_rows_smem if kind == "smem" else pp.gather_rows_async
+    kw = {"pipelined": True} if kind == "async_pipelined" else {}
+    got = _counted(fn, ids, tab, **kw)
+    assert torch.equal(got, pp.gather_rows_ref(ids, tab))
+
+
+def test_extract_sum_kernel_equals_plain_version(probe_data):
+    """Full-range values: the sum wraps."""
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    v = probe_data["tab"][:64]
+    got = _counted(pp.extract_sum, v)
+    assert torch.equal(got, pp.extract_sum_ref(v))
+
+
+def test_pass7_kernel_equals_plain_version(probe_data):
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    planes = probe_data["planes"]
+    got = _counted(pp.pass7, planes)
+    for g, p in zip(got, planes):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+    short = tuple(p[:1000] for p in planes)  # a ragged last block
+    for g, p in zip(_counted(pp.pass7, short), short):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("which", ["vec", "loop"])
+def test_subgather_kernels_equal_plain_version(probe_data, which):
+    from voxelraytracing_tpu_torch.experiments import v3_probe_subgather as ps
+
+    tab, idx = probe_data["tab"], probe_data["idx"]
+    fn, ref = {"vec": (ps.col_gather, ps.col_gather_ref),
+               "loop": (ps.row_loop, ps.row_loop_ref)}[which]
+    assert torch.equal(_counted(fn, tab, idx), ref(tab, idx))
+
+
+def test_probe_kernels_reject_bad_inputs(probe_data):
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+    from voxelraytracing_tpu_torch.experiments import v3_probe_subgather as ps
+
+    tab, ids = probe_data["tab"], probe_data["ids"]
+    with pytest.raises(ValueError, match="ids"):
+        pp.gather_rows_async(ids.cpu(), tab)
+    with pytest.raises(ValueError, match="tab"):
+        pp.gather_rows_smem(ids, tab.float())
+    with pytest.raises(ValueError, match="planes"):
+        pp.pass7(probe_data["planes"][:6] + (probe_data["planes"][0].cpu(),))
+    with pytest.raises(ValueError, match="idx"):
+        ps.col_gather(tab, probe_data["idx"].t())

@@ -54,6 +54,14 @@ _SIGNATURES = {
     "pathtrace4": {
         "pt4_launch": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
     },
+    "probes3": {
+        "gather_rows_smem_launch": (_I, [_P] * 3 + [_I, _P]),
+        "gather_rows_async_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "extract_sum_launch": (_I, [_P] * 2 + [_I, _P]),
+        "pass7_launch": (_I, [_P] * 14 + [_I, _P]),
+        "col_gather_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "row_loop_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+    },
 }
 KERNELS = tuple(_SIGNATURES)
 
