@@ -33,7 +33,10 @@ nvcc per source, all at once):
      camera rays and of the shadow bundle, the shade with and without
      shadows; ``trace_wavefront4_rays`` on the shadow bundle vs the result
      of the plain planes, every field; shadowed pixels counted (fail if
-     none);
+     none); a camera with no basis (every direction NaN) at 1920x1080: the
+     fused kernel with and without shadows and the split frame's launches
+     (planes, shade) vs their plain versions, exactly equal, every pixel
+     packed 0xFF000000 (a NaN sky is byte 0, as in JAX's frame);
   8. 320x180 with shadows, card vs CPU: 0 hit, voxel and shadow-bit
      mismatches, every pixel within 2/255;
   9. as 6 with shadows: 10 shadowed frames through ``render_packed``
@@ -86,7 +89,8 @@ nvcc per source, all at once):
      one fused launch a frame; at the end the same installs into a CPU
      builder (tables equal word for word) and card vs CPU at 320x180
      against the bar of phase 5, and the other sparse kernels against
-     their plain versions;
+     their plain versions; phase 7's camera with no basis on the sparse
+     tables;
  18. timing: the streaming step (set_chunks + prepared of 128 chunks,
      config4b) at 30 chunks dense and 80 sparse; the 80-chunk fly-through
      (frames/s, ms/frame, its builder and frame shares); the sparse
@@ -138,7 +142,8 @@ nvcc per source, all at once):
      main path at the JAX shapes, launches counted; each of the six probe
      kernels vs its plain version on random inputs at those shapes, bit
      for bit; device ms of each kernel, its plain version and its
-     yardstick library call, and its least time;
+     yardstick library call, and its least time, beside the launch floor:
+     the device ms of an empty kernel, timed as the probes are;
  30. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
@@ -147,6 +152,7 @@ Prints one line per phase, the kernels' JSON line, and as its last line
     python3 chip_smoke.py
 """
 
+import dataclasses
 import json
 import re
 import statistics
@@ -473,6 +479,57 @@ def compare_shadows(rg, prep, lut, cams, phase):
     check(shadowed > 0, "no pixel is shadowed")
     return dict(fused=worst["fused"] / 255.0, planes=worst["planes"],
                 shade=worst["shade"] / 255.0, marks=float(worst["marks"]))
+
+
+def no_basis(cam):
+    """``cam`` with its basis zeroed: every camera ray's direction is 0/0."""
+    iv = cam.inv_view.copy()
+    iv[:3, :3] = 0.0
+    return dataclasses.replace(cam, inv_view=iv)
+
+
+def compare_nan_direction(rg, prep, lut, cam, phase):
+    """``cam`` with no basis, so every direction is NaN: the fused kernel
+    with and without shadows, and the split frame (``render_frame4`` and
+    its launches: planes of the camera rays and of the shadow bundle, the
+    shade) against their plain versions on the card, word for word; every
+    pixel must pack to 0xFF000000, as in JAX's frame."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    cam = no_basis(cam)
+    bad, sky = {}, True
+    for shadows in (False, True):
+        args, fkw = frame_inputs(rg, prep, cam, lut, shadows)
+        got = t4.march_fused4(*args, **fkw)
+        want = t4.march_fused4_ref(*args, **fkw)
+        bad["fused", shadows] = sum(words_differ(a, b)
+                                    for a, b in zip(got, want))
+        scal, gw2, _, swc, wmp = args
+        p = split_parts(args, fkw)
+        ref = t4.march_planes4_ref(scal, gw2, swc, wmp, **p["mdims"])
+        rays = t4._shadow_prep4(ref[0], ref[1], scal.cpu().numpy())
+        rsh = (t4.march_planes4_ref(scal, gw2, swc, wmp, *rays,
+                                    **p["mdims"])[1] >> 1) & 1
+        skw = dict(shadows=shadows, max_steps=fkw["max_steps"])
+        img = t4.shade4(p["srow"], p["lut"], *p["planes"], p["sh"], **skw)
+        rimg = t4.shade4_ref(p["srow"], p["lut"], *ref, rsh, **skw)
+        frame = t4.render_frame4(rg, cam, lut, prepared=prep, shadows=shadows,
+                                 sun_pos=sun_of(cam),
+                                 **{**BENCH_KW, "fused": False})
+        bad["split", shadows] = (
+            sum(words_differ(a, b) for a, b in zip(p["planes"], ref))
+            + words_differ(p["sh"], rsh) + words_differ(img, rimg)
+            + words_differ(frame, rimg))
+        sky &= bool((want[0] == -0x1000000).all()) \
+            and bool((rimg == -0x1000000).all())
+    say(phase, f"camera with no basis (NaN directions) at "
+        f"{cam.proj_size[0]}x{cam.proj_size[1]}: words differing from the "
+        f"plain versions: "
+        + ", ".join(f"{k} shadows={sh} {n}" for (k, sh), n in bad.items())
+        + f"; every pixel 0xFF000000: {sky}")
+    check(not any(bad.values()), "a NaN-direction frame disagrees with its "
+          "plain version")
+    check(sky, "a NaN-direction pixel is not 0xFF000000")
 
 
 def event_ms(fn, n):
@@ -1032,6 +1089,13 @@ def time_pt(rg, mats, static, orbit, phase):
     out["plain_pt4"] = plain_ms(lambda: p4.pt4_ref(*args, **pkw))
     _, out["steps"], out["legs"] = p4.pt4_run(*args, **pkw)
     out["pixels"] = h * w
+    # the bounce bundle's steps and the rows holding its hit points
+    bts, bfl = t4.march_planes4(args[0], args[1], args[3], args[4], *bundle,
+                                height=h, width=w)[:2]
+    out["steps_bounce"] = int(((bfl >> 5) & 0xFFF).sum())
+    out["rows_bounce"] = int(hit_rows(
+        args[3], bundle[0], bundle[1], bts, ((bfl >> 1) & 1) != 0,
+        t4._world_dims(args[3], args[4])[1]).numel())
     rays2 = 2 * h * w
     for route in ("path_trace3", "fused"):
         for k in ("static", "orbit"):
@@ -1046,17 +1110,21 @@ def time_pt(rg, mats, static, orbit, phase):
     say(phase, f"{w}x{h} (planes_bounce is the bounce leg of path_trace3: "
         f"marks and march of its bundle)")
     say(phase, f"{w}x{h} static pt4 legs: {out['legs']} rays marched, "
-        f"{out['steps']} steps")
+        f"{out['steps']} steps; the bounce bundle: {out['steps_bounce']} "
+        f"steps, hit subwindow rows {out['rows_bounce']}")
     return out
 
 
 def pt_bounds(tp):
     """Least times on the static camera: matfetch4 moves 24 B a pixel
     (flags in, five planes out); pt4 writes 12 B a pixel and does the
-    steps its legs took plus the per-sample and per-leg work."""
+    steps its legs took plus the per-sample and per-leg work; the bounce
+    bundle's planes, as the shadow bundle's (shadow_bounds)."""
     px = tp["pixels"]
     return {
         "matfetch4": bound(24 * px, 0),
+        "planes_bounce": bound(tp["rows_bounce"] * ROW_BYTES + 41 * px,
+                               tp["steps_bounce"] * STEP_OPS + px * 21),
         "pt4": bound(12 * px + 10 * 128 * 4,
                      tp["steps"] * STEP_OPS + px * PT_KW["samples"]
                      * PT_SAMPLE_OPS + tp["legs"] * PT_LEG_OPS),
@@ -2256,6 +2324,14 @@ def phase_probes(phase):
          lambda: tab.index_select(0, idx[:, 0]),
          (ps.BLK * 4 + rows[1] * row_b + idx.numel() * 4, 0)),
     ]
+    from voxelraytracing_tpu_torch import _build
+
+    empty = _build.load("probes3").empty_launch
+    floor = graph_ms(lambda i: empty(torch.cuda.current_stream().cuda_stream),
+                     N_ORBIT)
+    say(phase, f"launch floor: an empty kernel {floor:.5f} ms on the device "
+        f"(one block of 32 threads, {N_ORBIT} launches in a CUDA graph, as "
+        f"each probe below is timed)")
     entries, bad = [], {}
     for name, rep, kern, ref, lib, (nb, ops) in probes:
         got, want = flat_outputs(kern()), flat_outputs(ref())
@@ -2272,7 +2348,8 @@ def phase_probes(phase):
                             plain_ms=p_ms, bound=(bms, by), library_ms=lib_ms))
         say(phase, f"{name}: {ms:.5f} ms on the device, plain {p_ms:.3f} ms, "
             f"library call {lib_ms:.5f} ms, least {bms:.6f} ms, bound by "
-            f"{by}; words differing from plain {bad[name]}")
+            f"{by}, launch floor {floor:.5f} ms; words differing from "
+            f"plain {bad[name]}")
     pipe = graph_ms(lambda i: pp.gather_rows_async(ids, tab, pipelined=True),
                     N_ORBIT)
     check(torch.equal(pp.gather_rows_async(ids, tab, pipelined=True),
@@ -2331,6 +2408,7 @@ def main():
     for size in SIZES:
         s, o = bench_cams(v, *size)
         errs[size] = compare_shadows(rg, prep, lut, [s] + o, 7)
+    compare_nan_direction(rg, prep, lut, static, 7)
     compare_on_cpu(rg_cpu, rg, mats, v, 8, shadows=True)
     counts = count_main_path(rg, mats, v)
     t8 = time_primary(rg, prep, lut, mats, v, 10)
@@ -2388,6 +2466,8 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     w40 = phase_w40(strip, lut, 16)
     b80, w80 = phase_w80(strip, mats, lut, 17)
+    compare_nan_direction(b80.grid(), b80.prepared(), lut,
+                          strip_cam(STATIC_FX, 80), 17)
     tsp = time_sparse(strip, b80, lut, 18)
     del b80
     torch.cuda.empty_cache()
@@ -2414,7 +2494,7 @@ def main():
         b["shade"])
     b_tcam, b_trays = b["touched_camera"], b["touched_rays"]
     bp = pt_bounds(tp)
-    for k in ("matfetch4", "pt4"):
+    for k in ("matfetch4", "pt4", "planes_bounce"):
         say(15, f"{WIDTH}x{HEIGHT} {k}: {tp[k + '_dev']:.4f} ms on the "
             f"device, least {bp[k][0]:.5f} ms, bound by {bp[k][1]}")
     src = "voxelraytracing_tpu_torch/csrc/"

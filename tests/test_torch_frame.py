@@ -38,6 +38,7 @@ from voxelraytracing_tpu_torch.models.raytracer import (
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import RenderGrid3, _sb_dims
+from torch_nan_camera import NAN_SKY, zero_basis
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 PLANES = ("gw_jump", "gw_liq", "wmeta", "sw_meta", "sw_solid", "sw_liq",
@@ -81,6 +82,9 @@ def world():
     gold["cap20"] = _jax_frame(jrg, mats, CAMS[0], step_cap=20)
     gold["steps"] = _jax_frame(jrg, mats, CAMS[0], show_steps=True)
     gold["ragged"] = _jax_frame(jrg, mats, CAMS[2], size=(72, 36))
+    gold["nan"] = tuple(np.asarray(x) for x in j_render_frame4(
+        jrg, zero_basis(JCamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
+        **KW))
     for i, (rot, eye) in enumerate(CAMS):
         gold[f"trace{i}"] = trace_wavefront4(
             jrg, np.asarray(eye, np.float32), step_cap=500, rounds=64,
@@ -172,6 +176,19 @@ def test_fused_frame_camera_outside_world(world):
     port = _port_frame(trg, mats, OUTSIDE)
     assert_frames_match(port, gold["outside"])
     assert not ((port[1] >> 1) & 1).any()
+
+
+def test_fused_frame_nan_direction_matches_jax(world):
+    """A camera with no basis: every direction NaN, no step, and JAX's
+    packed words (a NaN sky is byte 0) and flags exactly."""
+    _, trg, mats, gold = world
+    img, fl = t4.render_frame4(
+        trg, zero_basis(CamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
+        **KW)
+    jimg, jfl = gold["nan"]
+    assert (jimg.view(np.uint32) == NAN_SKY).all() and (jfl == 0).all()
+    np.testing.assert_array_equal(img.numpy().view(np.uint32), jimg)
+    np.testing.assert_array_equal(fl.numpy(), jfl)
 
 
 def test_fused_frame_step_cap(world):

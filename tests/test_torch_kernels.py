@@ -127,10 +127,8 @@ def test_kernel_step_cap_and_heatmap(card_world, cap):
 def test_kernel_nan_direction_takes_no_step(card_world, shadows):
     """Rays with no direction (the camera basis of ``scal`` zeroed, so
     each direction is 0/0) take no step, as in the plain version, whose
-    bounds test is false on a NaN position. The march's words (flags) are
-    compared, not the colour: the sky shade of a NaN direction differs,
-    since CUDA's fminf/fmaxf drop a NaN that torch.clamp keeps (ROADMAP
-    queue 3)."""
+    bounds test is false on a NaN position, and pack the plain version's
+    words: a NaN sky is byte 0 in every channel."""
     rg, prep, mats = card_world
     cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, (64, 32))
     args, fkw = t4.frame_args(rg, cam, mats.color, prepared=prep,
@@ -138,9 +136,10 @@ def test_kernel_nan_direction_takes_no_step(card_world, shadows):
     scal = args[0].clone()
     scal[12:21] = 0.0
     args = (scal,) + tuple(args[1:])
-    _, fl = t4.march_fused4(*args, **fkw)
-    _, rfl = t4.march_fused4_ref(*args, **fkw)
+    img, fl = t4.march_fused4(*args, **fkw)
+    rimg, rfl = t4.march_fused4_ref(*args, **fkw)
     assert int(rfl.abs().sum()) == 0 and torch.equal(fl, rfl)
+    assert bool((rimg == -0x1000000).all()) and torch.equal(img, rimg)
 
 
 @pytest.mark.parametrize("i", range(len(CAMS)))

@@ -9,8 +9,8 @@ driven by ``tests/torch_march4_host.cpp``. So the kernel's schedule (8x4
 pixel groups a warp), its march step and its shadow leg are held to
 ``march_fused4_ref`` word for word on every tier-1 run: dense and sparse
 tables, shadows, step caps, the heatmap, partial pixel groups, a camera
-outside the world and the 34-chunk scene whose sparse tables hold -1
-rows.
+outside the world, a camera with no basis (every direction NaN) and the
+34-chunk scene whose sparse tables hold -1 rows.
 """
 
 import shutil
@@ -29,6 +29,7 @@ from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
 from voxelraytracing_tpu_torch.world import demo
 from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
 
+from torch_nan_camera import zero_basis
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 TESTS = Path(__file__).resolve().parent
@@ -144,6 +145,25 @@ def test_kernel_source_heatmap(host_kernel, worlds, tmp_path):
                       CamData.create(rot, eye, 70.0, (64, 32)),
                       show_steps=True, step_cap=20)
     assert bad == 0 and hits > 0
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_kernel_source_nan_direction(host_kernel, worlds, tmp_path, sparse,
+                                     shadows):
+    """A camera whose basis is zero, so each direction is 0/0: no ray
+    steps, and the sky of a NaN direction packs to byte 0 in every
+    channel, as in the plain version and JAX's frame."""
+    grid, prep = worlds[sparse]
+    cam = zero_basis(CamData.create(*CAMS[0], 70.0, (40, 20)))
+    args, kw = t4.frame_args(grid, cam, demo.demo_materials().color,
+                             prepared=prep, sun_pos=SUN, shadows=shadows,
+                             step_cap=500)
+    got = _run_host(host_kernel, tmp_path, args, kw)
+    packed, flags = t4.march_fused4_ref(*args, **kw)
+    assert (packed == -0x1000000).all() and (flags == 0).all()
+    assert np.array_equal(got[0], packed.numpy())
+    assert np.array_equal(got[1], flags.numpy())
 
 
 def test_kernel_source_on_a_34_chunk_scene(host_kernel, tmp_path):

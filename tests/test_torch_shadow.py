@@ -28,6 +28,7 @@ from voxelraytracing_tpu_torch.convert import render_grid3_from_numpy
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
+from torch_nan_camera import NAN_SKY, zero_basis
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 # test_wavefront4.py:44-49
@@ -64,6 +65,10 @@ def world():
         device="cpu")
     gold = {i: _jax_frame(jrg, mats.color, CAMS[i]) for i in SHADOW_CAMS}
     gold["cap20"] = _jax_frame(jrg, mats.color, CAMS[0], step_cap=20)
+    nan_cam = zero_basis(JCamData.create(*CAMS[0], 70.0, SIZE))
+    for fused in (True, False):
+        gold["nan", fused] = tuple(np.asarray(x) for x in j_render_frame4(
+            jrg, nan_cam, mats.color, fused=fused, **KW))
     return trg, mats, gold
 
 
@@ -101,6 +106,22 @@ def test_split_shadow_frame_matches_jax(world, i):
     trg, mats, gold = world
     assert_frames_match(_port_frame(trg, mats.color, CAMS[i], fused=False),
                         gold[i])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_shadow_frame_nan_direction_matches_jax(world, fused):
+    """A camera with no basis: every direction NaN, no primary hit, so no
+    shadow ray; JAX's packed words (a NaN sky is byte 0) and flags
+    exactly, fused and split (whose blocks pass zero planes through)."""
+    trg, mats, gold = world
+    img, fl = t4.render_frame4(
+        trg, zero_basis(CamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
+        fused=fused, **KW)
+    jimg, jfl = gold["nan", fused]
+    assert (jimg.view(np.uint32) == NAN_SKY).all()
+    assert (jfl == (0 if fused else t4._FL_ZERO)).all()
+    np.testing.assert_array_equal(img.numpy().view(np.uint32), jimg)
+    np.testing.assert_array_equal(fl.numpy(), jfl)
 
 
 def test_shadows_darken_some_hits(world):

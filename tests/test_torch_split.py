@@ -36,6 +36,7 @@ from voxelraytracing_tpu_torch.ops import camera as t_camera
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
+from torch_nan_camera import NAN_SKY, zero_basis
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CAMS = [
@@ -110,6 +111,9 @@ def world():
         img, fl = j_render_frame4(
             jrg, JCamData.create(rot, eye, 70.0, SIZE), mats.color, **KW)
         gold[i] = np.asarray(img), np.asarray(fl)
+    gold["nan"] = tuple(np.asarray(x) for x in j_render_frame4(
+        jrg, zero_basis(JCamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
+        **KW))
     gold["bundle"] = _shadow_bundle(trg)
     gold["rays"] = j_trace_rays(jrg, *gold["bundle"], width=SIZE[0],
                                 height=SIZE[1], rounds=64, step_cap=500)
@@ -166,6 +170,21 @@ def test_split_frame_matches_jax(world, i):
     assert_frames_match(port, gold[i])
     if i == 4:
         assert (port[1] == t4._FL_ZERO).all()
+
+
+def test_split_frame_nan_direction_matches_jax(world):
+    """A camera with no basis: no ray starts, so every block passes its
+    zero planes through (flags ``-0x30000000``), and the split shade packs
+    JAX's words (a NaN sky is byte 0) exactly."""
+    trg, mats, gold = world
+    img, fl = t4.render_frame4(
+        trg, zero_basis(CamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
+        **KW)
+    jimg, jfl = gold["nan"]
+    assert (jimg.view(np.uint32) == NAN_SKY).all()
+    assert (jfl == t4._FL_ZERO).all()
+    np.testing.assert_array_equal(img.numpy().view(np.uint32), jimg)
+    np.testing.assert_array_equal(fl.numpy(), jfl)
 
 
 def test_trace_rays_shadow_bundle_matches_jax(world):

@@ -7,7 +7,6 @@
 // i32[rows, 7, 128], wmeta_pad i32[nw^3, 1, 128]. OUT: packed, then
 // flags, i32[height, width].
 #include <cstdio>
-#include <thread>
 #include <vector>
 
 #include "torch_cuda_host.h"
@@ -40,23 +39,10 @@ int main(int argc, char** argv) {
   auto kern = shadows ? (sparse ? march_fused4_kernel<true, true> : march_fused4_kernel<true, false>)
                       : (sparse ? march_fused4_kernel<false, true> : march_fused4_kernel<false, false>);
   // the launcher's grid: a block for each kWarps x 1 pixel groups
-  const int grid_x = (width + kWarps * kGroupW - 1) / (kWarps * kGroupW);
-  const int grid_y = (height + kGroupH - 1) / kGroupH;
-  for (int by = 0; by < grid_y; ++by)
-    for (int bx = 0; bx < grid_x; ++bx) {
-      std::barrier<> bar(kThreads);
-      host_block_barrier = &bar;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < kThreads; ++t)
-        threads.emplace_back([&, t] {
-          threadIdx.x = t;
-          blockIdx.x = bx;
-          blockIdx.y = by;
-          kern(scal.data(), gw2.data(), lut.data(), swc.data(), wmp.data(), packed.data(),
-               flags.data(), height, width, nw, ns, gs, show, max_steps);
-        });
-      for (auto& th : threads) th.join();
-    }
+  host_launch((width + kWarps * kGroupW - 1) / (kWarps * kGroupW),
+              (height + kGroupH - 1) / kGroupH, kThreads, kern, scal.data(), gw2.data(),
+              lut.data(), swc.data(), wmp.data(), packed.data(), flags.data(), height, width, nw,
+              ns, gs, show, max_steps);
   FILE* o = fopen(argv[2], "wb");
   if (!o) return 2;
   fwrite(packed.data(), 4, packed.size(), o);

@@ -57,10 +57,11 @@ _SIGNATURES = {
     "probes3": {
         "gather_rows_smem_launch": (_I, [_P] * 3 + [_I, _P]),
         "gather_rows_async_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
-        "extract_sum_launch": (_I, [_P] * 2 + [_I, _P]),
+        "extract_sum_launch": (_I, [_P] * 3),
         "pass7_launch": (_I, [_P] * 14 + [_I, _P]),
-        "col_gather_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "col_gather_launch": (_I, [_P] * 3 + [_I, _P]),
         "row_loop_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "empty_launch": (_I, [_P]),
     },
 }
 KERNELS = tuple(_SIGNATURES)

@@ -73,14 +73,23 @@ __device__ __forceinline__ float axis_exit(float pc, float sgf, float ivs,
   return big ? kBig : (b * cell - ps) * ivs;
 }
 
+// x clamped to [lo, hi] as torch.clamp and jnp.clip clamp: a NaN stays NaN
+// (fminf and fmaxf would drop it). A select outside every step loop.
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
 __device__ __forceinline__ float sstep(float e0, float inv_span, float x) {
-  float q = (x - e0) * inv_span;
-  q = fminf(fmaxf(q, 0.0f), 1.0f);
+  const float q = clamp_nan((x - e0) * inv_span, 0.0f, 1.0f);
   return q * q * (3.0f - 2.0f * q);
 }
 
+// A channel's byte: a NaN channel (a NaN direction's sky) is byte 0, as
+// XLA converts NaN to an integer; the cast alone gives 0 on CUDA but
+// INT_MIN on x86, whose host build runs this code in the tests.
 __device__ __forceinline__ unsigned q8(float c) {
-  return static_cast<unsigned>(static_cast<int>(fminf(fmaxf(c, 0.0f), 1.0f) * 255.0f));
+  const float q = clamp_nan(c, 0.0f, 1.0f) * 255.0f;
+  return q == q ? static_cast<unsigned>(static_cast<int>(q)) : 0u;
 }
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -329,7 +338,7 @@ __device__ __forceinline__ unsigned shade_rgba8(const float* s, const float* clu
   cg = cg * tint;
   cb = cb * tint;
   if (show_steps) {
-    const float f = fminf(fmaxf(static_cast<float>(stp) / max_steps, 0.0f), 1.0f);
+    const float f = clamp_nan(static_cast<float>(stp) / max_steps, 0.0f, 1.0f);
     cr = cg = cb = f;
   }
   cr = cr * shm;
@@ -344,7 +353,7 @@ __device__ __forceinline__ unsigned shade_rgba8(const float* s, const float* clu
   const float sb = 0.03f + ((0.0f + (s[33] - 0.0f) * grad_t) - 0.03f) * gts + sun;
   float r = hit ? cr : sr, gc = hit ? cg : sg, b = hit ? cb : sb;
   if (water != 0.0f) {
-    const float factor = fminf(fmaxf(water * (1.0f / 14.0f), 0.8f), 1.0f);
+    const float factor = clamp_nan(water * (1.0f / 14.0f), 0.8f, 1.0f);
     const float keep = 1.0f - factor;
     r = r * keep + 0.2f * factor;
     gc = gc * keep + 0.5f * factor;

@@ -1,6 +1,6 @@
 // Hopper counterparts of the TPU primitive probes (sm_90a): timing
 // kernels of single primitives, each computing what its TPU probe
-// computes, at the probe's shapes and program counts.
+// computes, at the probe's shapes.
 //
 // Replaces the Pallas kernels of the two probe scripts:
 //   experiments/v3_probe_prims.py
@@ -11,6 +11,12 @@
 //   experiments/v3_probe_subgather.py
 //     k_gather (:10, call :25)  -> col_gather_kernel
 //     k_loop (:13, call :25)    -> row_loop_kernel
+//
+// Some TPU probes repeat one block's work in every program of a grid
+// (the grid runs in order on one core, every program writing the same
+// output block). On this card the programs would all run at once, so the
+// repeat is pure loss: extract_sum and col_gather compute their function
+// once; row_loop still runs the probe's 256 programs.
 //
 // What each probes on this card, and what bounds it:
 //   * gather_rows_smem: out[i, k, :] = tab[ids[i, k], :] for a block's 16
@@ -24,20 +30,27 @@
 //     row before asking for the next (the probe's start(); wait()), true
 //     keeps all 16 in flight. Bytes, or the latency of the serial chain.
 //   * extract_sum: the wrapping int32 sum of v[0:64, 0], broadcast to an
-//     (8, 128) block. A warp reads the tile row by row (16 B a lane) and
-//     pulls each row's first word out of lane 0 with __shfl_sync, as the
-//     probe pulls a scalar out of a vector register. Every program writes
-//     the same block. Latency (64 dependent extracts), not bytes.
+//     (8, 128) block, by one block: 64 threads load one scalar each, two
+//     warp reductions and a sum of the two partials in shared memory, then
+//     each of 256 threads stores 16 bytes of the block. A launch and two
+//     dependent memory round trips; its bytes are ~4.4 KB.
 //   * pass7: seven f32 planes copied through, 64 rows a block (the probe's
 //     508 programs), 16-byte loads and stores. Bytes: 2 x 7 planes.
-//   * col_gather: out[j, l] = tab[idx[j, l], l], one thread a lane, a
-//     per-lane __ldg gather from the L2-resident table; every program
-//     writes the same [64, 128] block (the probe's grid of 256). Bytes.
+//   * col_gather: out[j, l] = tab[idx[j, l], l] (take_along_axis), a grid
+//     sized to the [blk, 128] output: each thread loads 4 ids of one row
+//     in one coalesced 16-byte load, makes 4 independent __ldg gathers
+//     from the L2-resident table, and stores 16 coalesced bytes. Latency
+//     of the id load and the dependent gather; its bytes are ~97 KB.
 //   * row_loop: out[j, :] = tab[idx[j, 0], :], the ids read in a loop, one
-//     warp a row; every program writes the same block. Bytes.
+//     warp a row; every program writes the same block (the probe's 256).
+//     Bytes.
 //
 // Every kernel takes ids in [0, rows): the wrappers do not read the ids
 // (that would need a host sync inside the timed call).
+//
+// tests/torch_probes_host.cpp builds this file for the CPU with
+// PROBES3_HOST_TEST defined, which leaves out the cp.async kernel and the
+// CUDA launchers: keep any new CUDA-only code inside that #ifndef.
 
 #include <cstddef>
 #include <cuda_runtime.h>
@@ -48,8 +61,15 @@ constexpr int kRow = 128;          // int32 words a table row
 constexpr int kRowVec = kRow / 4;  // 16-byte vectors a row: one a lane
 constexpr int kIds = 16;           // rows a gather block
 constexpr int kExtract = 64;       // scalars summed by extract_sum
+constexpr int kSumThreads = 8 * kRowVec;  // extract_sum: a 16-byte store each
 constexpr int kPassRows = 64;      // rows a pass7 block
+constexpr int kColThreads = 128;   // col_gather threads a block, 4 words each
 constexpr unsigned kFull = 0xffffffffu;
+
+// col_gather's grid: one thread for each 16 bytes of the [blk, 128] output
+constexpr int col_gather_blocks(int blk) {
+  return (blk * kRowVec + kColThreads - 1) / kColThreads;
+}
 
 __global__ void __launch_bounds__(128) gather_rows_smem_kernel(const int* __restrict__ ids,
                                                                const int4* __restrict__ tab,
@@ -62,6 +82,69 @@ __global__ void __launch_bounds__(128) gather_rows_smem_kernel(const int* __rest
     out[(static_cast<size_t>(blockIdx.x) * kIds + k) * kRowVec + lane] =
         __ldg(tab + static_cast<size_t>(sid[k]) * kRowVec + lane);
 }
+
+// One block of kSumThreads: thread t < 64 loads v[t, 0]; the sum is taken
+// as unsigned, so it wraps as JAX's int32 sum does.
+__global__ void __launch_bounds__(kSumThreads) extract_sum_kernel(const int* __restrict__ v,
+                                                                  int4* __restrict__ out) {
+  __shared__ unsigned part[kExtract / 32];
+  const int t = threadIdx.x;
+  if (t < kExtract) {  // whole warps
+    const unsigned s = __reduce_add_sync(kFull, static_cast<unsigned>(__ldg(v + t * kRow)));
+    if ((t & 31) == 0) part[t >> 5] = s;
+  }
+  __syncthreads();
+  unsigned total = 0;
+#pragma unroll
+  for (int k = 0; k < kExtract / 32; ++k) total += part[k];
+  const int s = static_cast<int>(total);
+  out[t] = make_int4(s, s, s, s);
+}
+
+struct Planes7 {
+  const float4* in[7];
+  float4* out[7];
+};
+
+__global__ void __launch_bounds__(256) pass7_kernel(Planes7 p, int rows) {
+  const size_t n = static_cast<size_t>(rows) * kRowVec;
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * kPassRows * kRowVec;
+  for (int i = threadIdx.x; i < kPassRows * kRowVec; i += blockDim.x) {
+    const size_t o = b0 + i;
+    if (o >= n) break;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) p.out[k][o] = __ldg(p.in[k] + o);
+  }
+}
+
+// Thread i owns output words 4i..4i+3: row i / 32, lanes 4(i % 32) on.
+__global__ void __launch_bounds__(kColThreads) col_gather_kernel(const int* __restrict__ tab,
+                                                                 const int4* __restrict__ idx,
+                                                                 int4* __restrict__ out,
+                                                                 int n_vec) {
+  const int i = blockIdx.x * kColThreads + threadIdx.x;
+  if (i >= n_vec) return;
+  const int4 id = __ldg(idx + i);
+  const int* col = tab + (i % kRowVec) * 4;
+  out[i] = make_int4(__ldg(col + static_cast<size_t>(id.x) * kRow),
+                     __ldg(col + static_cast<size_t>(id.y) * kRow + 1),
+                     __ldg(col + static_cast<size_t>(id.z) * kRow + 2),
+                     __ldg(col + static_cast<size_t>(id.w) * kRow + 3));
+}
+
+__global__ void __launch_bounds__(128) row_loop_kernel(const int4* __restrict__ tab,
+                                                       const int* __restrict__ idx,
+                                                       int4* __restrict__ out, int blk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = warp; j < blk; j += 4)
+    out[j * kRowVec + lane] =
+        __ldg(tab + static_cast<size_t>(__ldg(idx + j * kRow)) * kRowVec + lane);
+}
+
+}  // namespace
+
+#ifndef PROBES3_HOST_TEST
+namespace {
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -96,54 +179,8 @@ __global__ void __launch_bounds__(32) gather_rows_async_kernel(const int* __rest
   for (int k = 0; k < kIds; ++k) o[k * kRowVec + lane] = buf[k * kRowVec + lane];
 }
 
-__global__ void __launch_bounds__(128) extract_sum_kernel(const int4* __restrict__ v,
-                                                          int* __restrict__ out) {
-  __shared__ unsigned total;
-  if (threadIdx.x < 32) {
-    unsigned acc = 0;  // unsigned: the sum wraps as JAX's int32 sum does
-    for (int j = 0; j < kExtract; ++j) {
-      const int4 w = __ldg(v + j * kRowVec + threadIdx.x);
-      acc += static_cast<unsigned>(__shfl_sync(kFull, w.x, 0));
-    }
-    if (threadIdx.x == 0) total = acc;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 8 * kRow; i += blockDim.x) out[i] = static_cast<int>(total);
-}
-
-struct Planes7 {
-  const float4* in[7];
-  float4* out[7];
-};
-
-__global__ void __launch_bounds__(256) pass7_kernel(Planes7 p, int rows) {
-  const size_t n = static_cast<size_t>(rows) * kRowVec;
-  const size_t b0 = static_cast<size_t>(blockIdx.x) * kPassRows * kRowVec;
-  for (int i = threadIdx.x; i < kPassRows * kRowVec; i += blockDim.x) {
-    const size_t o = b0 + i;
-    if (o >= n) break;
-#pragma unroll
-    for (int k = 0; k < 7; ++k) p.out[k][o] = __ldg(p.in[k] + o);
-  }
-}
-
-__global__ void __launch_bounds__(kRow) col_gather_kernel(const int* __restrict__ tab,
-                                                          const int* __restrict__ idx,
-                                                          int* __restrict__ out, int blk) {
-  const int l = threadIdx.x;
-#pragma unroll 8
-  for (int j = 0; j < blk; ++j)
-    out[j * kRow + l] = __ldg(tab + static_cast<size_t>(__ldg(idx + j * kRow + l)) * kRow + l);
-}
-
-__global__ void __launch_bounds__(128) row_loop_kernel(const int4* __restrict__ tab,
-                                                       const int* __restrict__ idx,
-                                                       int4* __restrict__ out, int blk) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = warp; j < blk; j += 4)
-    out[j * kRowVec + lane] =
-        __ldg(tab + static_cast<size_t>(__ldg(idx + j * kRow)) * kRowVec + lane);
-}
+// Does nothing: its launch is the floor under every kernel's time.
+__global__ void empty_kernel() {}
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
@@ -170,9 +207,9 @@ extern "C" int gather_rows_async_launch(const int* ids, const int* tab, int* out
   return last_error();
 }
 
-// out[8, 128] = wrapping sum of v[0:64, 0], by `programs` blocks
-extern "C" int extract_sum_launch(const int* v, int* out, int programs, cudaStream_t stream) {
-  extract_sum_kernel<<<programs, 128, 0, stream>>>(reinterpret_cast<const int4*>(v), out);
+// out[8, 128] = wrapping sum of v[0:64, 0], by one block
+extern "C" int extract_sum_launch(const int* v, int* out, cudaStream_t stream) {
+  extract_sum_kernel<<<1, kSumThreads, 0, stream>>>(v, reinterpret_cast<int4*>(out));
   return last_error();
 }
 
@@ -192,10 +229,13 @@ extern "C" int pass7_launch(const float* i0, const float* i1, const float* i2, c
   return last_error();
 }
 
-// out[blk, 128] = take_along_axis(tab, idx, 0), by `programs` blocks
-extern "C" int col_gather_launch(const int* tab, const int* idx, int* out, int blk, int programs,
+// out[blk, 128] = take_along_axis(tab, idx, 0), one thread for each 16
+// bytes of the output
+extern "C" int col_gather_launch(const int* tab, const int* idx, int* out, int blk,
                                  cudaStream_t stream) {
-  col_gather_kernel<<<programs, kRow, 0, stream>>>(tab, idx, out, blk);
+  if (blk > 0)
+    col_gather_kernel<<<col_gather_blocks(blk), kColThreads, 0, stream>>>(
+        tab, reinterpret_cast<const int4*>(idx), reinterpret_cast<int4*>(out), blk * kRowVec);
   return last_error();
 }
 
@@ -206,3 +246,10 @@ extern "C" int row_loop_launch(const int* tab, const int* idx, int* out, int blk
                                                 reinterpret_cast<int4*>(out), blk);
   return last_error();
 }
+
+// one launch of a kernel that does nothing
+extern "C" int empty_launch(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return last_error();
+}
+#endif  // PROBES3_HOST_TEST

@@ -20,8 +20,11 @@ CPU tensors:
   * :func:`pass7` (P5, ``k_pass``): seven f32 planes copied through; plain
     :func:`pass7_ref`.
 
-Each wrapper runs as many programs as the probe (254 gather blocks, 254
-extract programs writing one block, 508 pass-through blocks of 64 rows).
+The gathers and the pass-through run as many blocks as the probe has
+programs (254 gather blocks, 508 pass-through blocks of 64 rows), since
+each of those programs does its own part of the work. The extract's 254
+programs all wrote the same block, which on the TPU's sequential grid
+repeated one program's work; its kernel computes the block once.
 
     python -m voxelraytracing_tpu_torch.experiments.v3_probe_prims
 """
@@ -103,9 +106,8 @@ def extract_sum_ref(v):
 
 def extract_sum(v):
     """P3: ``v`` i32[rows >= 64, 128] -> i32[8, 128]: ``extract_sum_kernel``
-    in ``NB`` blocks, each pulling the 64 scalars out of lane 0 with
-    warp shuffles and writing the same block, on CUDA;
-    :func:`extract_sum_ref` on the CPU."""
+    in one block (64 scalar loads, two warp reductions, one 16-byte store a
+    thread), on CUDA; :func:`extract_sum_ref` on the CPU."""
     dev = _device_of(v, "extract_sum")
     if v.ndim != 2 or v.shape[0] < BLK:
         raise ValueError(f"v: want int32[>= {BLK}, {ROW}], got {list(v.shape)}")
@@ -114,7 +116,7 @@ def extract_sum(v):
         return extract_sum_ref(v)
     out = torch.empty((8, ROW), dtype=torch.int32, device=dev)
     _run(dev, "extract_sum", _build.load("probes3").extract_sum_launch,
-         v.data_ptr(), out.data_ptr(), NB)
+         v.data_ptr(), out.data_ptr())
     extract_sum.launches += 1
     return out
 
@@ -200,7 +202,7 @@ def main():
          lambda: gather_rows_async(ids, tab), want),
         ("P2 cp.async 16 rows x254blk, pipelined",
          lambda: gather_rows_async(ids, tab, pipelined=True), want),
-        ("P3 64 scalar extracts x254blk", lambda: extract_sum(tab[:BLK]),
+        ("P3 64 scalar extracts, one block", lambda: extract_sum(tab[:BLK]),
          extract_sum_ref(tab[:BLK])),
         ("P4 torch u8 gather 2M (library call)",
          lambda: vol[idxs], None),

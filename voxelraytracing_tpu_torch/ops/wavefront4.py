@@ -548,7 +548,10 @@ def _shade_pixels(sf, lut_flat, dx, dy, dz, hit, axm, vox, water, stp,
     b = torch.where(wet, b * keep + 1.0 * factor, b)
 
     def q8(c):
-        return (torch.clamp(c, 0.0, 1.0) * 255.0).to(i32)
+        # a NaN channel (a NaN direction's sky) is byte 0, as XLA converts
+        # NaN to an integer; torch's CPU cast alone gives INT_MIN
+        return torch.nan_to_num(torch.clamp(c, 0.0, 1.0) * 255.0,
+                                nan=0.0).to(i32)
 
     return q8(r) | (q8(g) << 8) | (q8(b) << 16) | -0x1000000
 
