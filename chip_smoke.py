@@ -2258,9 +2258,10 @@ def phase_probes(phase):
     """The primitive probes (``voxelraytracing_tpu_torch.experiments``):
     their scripts' main paths driven with the counts set to 0 just before
     and read just after; each kernel vs its plain version at the JAX
-    shapes on random inputs, bit for bit; device ms of each kernel (CUDA
-    graph), its plain version, its yardstick library call and its least
-    time. Returns the probes' entries of the kernels line."""
+    shapes on random inputs, bit for bit (``gather_rows_async`` in both
+    modes); device ms of each kernel (CUDA graph), its plain version, its
+    yardstick library call and its least time. Returns the probes' entries
+    of the kernels line."""
     from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
     from voxelraytracing_tpu_torch.experiments import v3_probe_subgather as ps
 
@@ -2350,14 +2351,17 @@ def phase_probes(phase):
             f"library call {lib_ms:.5f} ms, least {bms:.6f} ms, bound by "
             f"{by}, launch floor {floor:.5f} ms; words differing from "
             f"plain {bad[name]}")
-    pipe = graph_ms(lambda i: pp.gather_rows_async(ids, tab, pipelined=True),
-                    N_ORBIT)
-    check(torch.equal(pp.gather_rows_async(ids, tab, pipelined=True),
-                      pp.gather_rows_ref(ids, tab)),
-          "pipelined gather_rows_async disagrees with its plain version")
-    say(phase, f"gather_rows_async pipelined (16 rows in flight): {pipe:.5f} "
-        f"ms on the device; distinct rows gathered {rows[0]} of "
-        f"{ids.numel()}")
+    def serial():
+        return pp.gather_rows_async(ids, tab, pipelined=False)
+
+    bad["gather_rows_async serial"] = words_differ(
+        serial(), pp.gather_rows_ref(ids, tab))
+    ser = graph_ms(lambda i: serial(), N_ORBIT)
+    say(phase, f"gather_rows_async serial (TMA bulk, each row waited): "
+        f"{ser:.5f} ms on the device, launch floor {floor:.5f} ms; words "
+        f"differing from plain {bad['gather_rows_async serial']}; the "
+        f"default above keeps 16 rows in flight; distinct rows gathered "
+        f"{rows[0]} of {ids.numel()}")
     check(not any(bad.values()), "a probe kernel disagrees with its plain "
           "version")
     return entries

@@ -712,15 +712,37 @@ def _counted(fn, *args, **kw):
     return out
 
 
-@pytest.mark.parametrize("kind", ["smem", "async", "async_pipelined"])
-def test_row_gather_kernels_equal_plain_version(probe_data, kind):
+@pytest.mark.parametrize("nb", [254, 1])
+@pytest.mark.parametrize("kind", ["smem", "async", "async_pipelined",
+                                  "async_serial"])
+def test_row_gather_kernels_equal_plain_version(probe_data, kind, nb):
+    """``async`` is the TMA kernel's default (16 rows in flight), the same
+    as ``async_pipelined``; ``async_serial`` waits for each row. The
+    script's 254 blocks and one block."""
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    tab, ids = probe_data["tab"], probe_data["ids"][:nb]
+    fn = pp.gather_rows_smem if kind == "smem" else pp.gather_rows_async
+    kw = {"async_pipelined": {"pipelined": True},
+          "async_serial": {"pipelined": False}}.get(kind, {})
+    got = _counted(fn, ids, tab, **kw)
+    assert torch.equal(got, pp.gather_rows_ref(ids, tab))
+
+
+def test_gather_rows_async_rejects_misaligned_table(probe_data):
+    """``cp.async.bulk`` needs 16-byte aligned rows: a table that starts
+    one word into a flat buffer raises before any launch."""
     from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
 
     tab, ids = probe_data["tab"], probe_data["ids"]
-    fn = pp.gather_rows_smem if kind == "smem" else pp.gather_rows_async
-    kw = {"pipelined": True} if kind == "async_pipelined" else {}
-    got = _counted(fn, ids, tab, **kw)
-    assert torch.equal(got, pp.gather_rows_ref(ids, tab))
+    flat = torch.empty(tab.numel() + 1, dtype=torch.int32, device="cuda")
+    off = flat[1:].view(tab.shape)
+    off.copy_(tab)
+    before = pp.gather_rows_async.launches
+    for pipelined in (True, False):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pp.gather_rows_async(ids, off, pipelined=pipelined)
+    assert pp.gather_rows_async.launches == before
 
 
 def test_extract_sum_kernel_equals_plain_version(probe_data):
@@ -752,6 +774,17 @@ def test_subgather_kernels_equal_plain_version(probe_data, which):
     fn, ref = {"vec": (ps.col_gather, ps.col_gather_ref),
                "loop": (ps.row_loop, ps.row_loop_ref)}[which]
     assert torch.equal(_counted(fn, tab, idx), ref(tab, idx))
+
+
+@pytest.mark.parametrize("blk", [64, 6, 1])
+def test_row_loop_kernel_grid_sized_to_output(probe_data, blk):
+    """One warp a row, 4 rows a block: 16 blocks, 2 with a half-idle last
+    block, and 1; each launch counted once."""
+    from voxelraytracing_tpu_torch.experiments import v3_probe_subgather as ps
+
+    tab, idx = probe_data["tab"], probe_data["idx"][:blk].contiguous()
+    assert torch.equal(_counted(ps.row_loop, tab, idx),
+                       ps.row_loop_ref(tab, idx))
 
 
 def test_probe_kernels_reject_bad_inputs(probe_data):

@@ -81,15 +81,19 @@ def _ids(seed, shape):
         0, SMALL["NROWS"], shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("wrapper", ["smem", "async", "async_pipelined"])
+@pytest.mark.parametrize("wrapper", ["smem", "async", "async_pipelined",
+                                     "async_serial"])
 def test_row_gathers_equal_k_dma(prims, wrapper):
-    """P1 and P2 compute k_dma's function: ``out[i, k] = tab[ids[i, k]]``."""
+    """P1 and P2 (by default, with all rows in flight, and with each row
+    waited) compute k_dma's function: ``out[i, k] = tab[ids[i, k]]``."""
     tab, ids = _table(0), _ids(0, (SMALL["NB"], 16))
     want = np.asarray(_pallas(prims, "k_dma")(jnp.asarray(ids),
                                               jnp.asarray(tab)))
     fn = {"smem": pp.gather_rows_smem, "async": pp.gather_rows_async,
           "async_pipelined": lambda i, t: pp.gather_rows_async(
-              i, t, pipelined=True)}[wrapper]
+              i, t, pipelined=True),
+          "async_serial": lambda i, t: pp.gather_rows_async(
+              i, t, pipelined=False)}[wrapper]
     got = fn(torch.from_numpy(ids), torch.from_numpy(tab))
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
@@ -186,3 +190,20 @@ def test_wrappers_reject_bad_inputs():
         ps.col_gather(tab, torch.zeros(64, 128))
     with pytest.raises(ValueError, match="cuda or cpu"):
         ps.row_loop(tab.to("meta"), ids.to("meta"))
+
+
+def test_gather_rows_async_rejects_misaligned_table():
+    """The TMA kernel's bulk copies need a 16-byte aligned table: a table
+    one word into a flat buffer raises on the CPU too, before the plain
+    version runs; an aligned view of the same buffer does not."""
+    tab, ids = _table(7), torch.from_numpy(_ids(7, (2, 16)))
+    flat = torch.zeros(tab.size + 4, dtype=torch.int32)
+    for off, ok in ((1, False), (4, True)):
+        view = flat[off:off + tab.size].view(tab.shape)
+        view.copy_(torch.from_numpy(tab))
+        if ok:
+            got = pp.gather_rows_async(ids, view)
+            assert torch.equal(got, pp.gather_rows_ref(ids, view))
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                pp.gather_rows_async(ids, view)

@@ -2,14 +2,15 @@
 // csrc/ run on the CPU (tests/test_torch_march4_host.py,
 // tests/test_torch_probes_host.py): host_launch runs each block's threads
 // as std::threads, one block at a time; __syncthreads is a barrier among
-// them, __reduce_add_sync one among a warp's; __shared__ arrays are static
-// (one block runs at a time), __ldg a plain load. Built with
+// them, __syncwarp and __reduce_add_sync one among a warp's; __shared__
+// arrays are static (one block runs at a time), __ldg a plain load. Built with
 // -ffp-contract=off, as the kernels are with --fmad=false.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <deque>
 #include <thread>
@@ -24,6 +25,7 @@ using std::min;
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -49,6 +51,9 @@ inline std::barrier<>* host_block_barrier = nullptr;
 inline std::deque<HostWarp>* host_block_warps = nullptr;
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*host_block_warps)[threadIdx.x / 32].bar.arrive_and_wait();
+}
 
 // The sum over the calling warp (all its threads must call it).
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {

@@ -60,7 +60,7 @@ _SIGNATURES = {
         "extract_sum_launch": (_I, [_P] * 3),
         "pass7_launch": (_I, [_P] * 14 + [_I, _P]),
         "col_gather_launch": (_I, [_P] * 3 + [_I, _P]),
-        "row_loop_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "row_loop_launch": (_I, [_P] * 3 + [_I, _P]),
         "empty_launch": (_I, [_P]),
     },
 }

@@ -15,8 +15,8 @@
 // Some TPU probes repeat one block's work in every program of a grid
 // (the grid runs in order on one core, every program writing the same
 // output block). On this card the programs would all run at once, so the
-// repeat is pure loss: extract_sum and col_gather compute their function
-// once; row_loop still runs the probe's 256 programs.
+// repeat is pure loss: no kernel here repeats a TPU program count, and
+// each computes its function once.
 //
 // What each probes on this card, and what bounds it:
 //   * gather_rows_smem: out[i, k, :] = tab[ids[i, k], :] for a block's 16
@@ -24,11 +24,14 @@
 //     a row, 16-byte loads through the read-only path. Bytes: the rows,
 //     the ids and the output. (The TPU kernel k_smem does not trace as
 //     written, see the Python module; this is its intended function.)
-//   * gather_rows_async: the same function as k_dma computes it: each row
-//     copied by cp.async (16 B a lane) into shared memory, then one
-//     coalesced store of the 16 rows. kPipelined = false waits for each
-//     row before asking for the next (the probe's start(); wait()), true
-//     keeps all 16 in flight. Bytes, or the latency of the serial chain.
+//   * gather_rows_async: the same function as k_dma computes it, by the
+//     Tensor Memory Accelerator: lane k of a one-warp block copies row k
+//     (512 bytes) into shared memory with one cp.async.bulk that completes
+//     on an mbarrier, then one lane writes the 8 KB block back with one
+//     bulk store. kPipelined = true arms the barrier once for all 16 rows,
+//     so they are in flight together; false arms and waits for each row
+//     before the next is issued (the probe's start(); wait()), a chain of
+//     16 copy latencies. Bytes, or the latency of the serial chain.
 //   * extract_sum: the wrapping int32 sum of v[0:64, 0], broadcast to an
 //     (8, 128) block, by one block: 64 threads load one scalar each, two
 //     warp reductions and a sum of the two partials in shared memory, then
@@ -41,18 +44,23 @@
 //     in one coalesced 16-byte load, makes 4 independent __ldg gathers
 //     from the L2-resident table, and stores 16 coalesced bytes. Latency
 //     of the id load and the dependent gather; its bytes are ~97 KB.
-//   * row_loop: out[j, :] = tab[idx[j, 0], :], the ids read in a loop, one
-//     warp a row; every program writes the same block (the probe's 256).
-//     Bytes.
+//   * row_loop: out[j, :] = tab[idx[j, 0], :], a grid sized to the
+//     [blk, 128] output: one warp a row, 4 rows a block (16 blocks of 128
+//     threads for blk = 64). The warp reads idx[j, 0] once (every lane the
+//     same word: one broadcast load), then each lane makes one 16-byte
+//     __ldg of the row and one 16-byte store. Latency of the id load and
+//     the dependent row load; its bytes are ~41 KB.
 //
 // Every kernel takes ids in [0, rows): the wrappers do not read the ids
 // (that would need a host sync inside the timed call).
 //
 // tests/torch_probes_host.cpp builds this file for the CPU with
-// PROBES3_HOST_TEST defined, which leaves out the cp.async kernel and the
-// CUDA launchers: keep any new CUDA-only code inside that #ifndef.
+// PROBES3_HOST_TEST defined, which leaves out the PTX helpers (the host
+// build supplies stand-ins for them) and the CUDA launchers: keep any new
+// CUDA-only code inside those #ifndefs.
 
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -64,12 +72,87 @@ constexpr int kExtract = 64;       // scalars summed by extract_sum
 constexpr int kSumThreads = 8 * kRowVec;  // extract_sum: a 16-byte store each
 constexpr int kPassRows = 64;      // rows a pass7 block
 constexpr int kColThreads = 128;   // col_gather threads a block, 4 words each
+constexpr int kLoopRows = 4;       // row_loop rows a block, one warp each
+constexpr unsigned kRowBytes = kRow * 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 // col_gather's grid: one thread for each 16 bytes of the [blk, 128] output
 constexpr int col_gather_blocks(int blk) {
   return (blk * kRowVec + kColThreads - 1) / kColThreads;
 }
+
+// row_loop's grid: one warp for each row of the [blk, 128] output
+constexpr int row_loop_blocks(int blk) { return (blk + kLoopRows - 1) / kLoopRows; }
+
+}  // namespace
+
+#ifndef PROBES3_HOST_TEST
+namespace {
+
+// The Tensor Memory Accelerator's bulk copies and the mbarrier they
+// complete on (PTX ISA: cp.async.bulk, mbarrier). Shared addresses are
+// 32-bit offsets in the shared window.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread: the barrier expects `count` arrivals a phase; the fence
+// makes the initialisation visible to the async proxy (the copy engine)
+// before any copy completes on it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also raises the phase's expected transaction bytes:
+// the phase completes once every byte armed has been copied.
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// into shared memory; the copy counts its bytes off `bar` as they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` from shared memory to device memory in one bulk store, then
+// wait until the store has read its source, so that the shared buffer
+// may end with the block.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+}  // namespace
+#endif  // PROBES3_HOST_TEST
+
+namespace {
 
 __global__ void __launch_bounds__(128) gather_rows_smem_kernel(const int* __restrict__ ids,
                                                                const int4* __restrict__ tab,
@@ -132,52 +215,65 @@ __global__ void __launch_bounds__(kColThreads) col_gather_kernel(const int* __re
                      __ldg(col + static_cast<size_t>(id.w) * kRow + 3));
 }
 
-__global__ void __launch_bounds__(128) row_loop_kernel(const int4* __restrict__ tab,
-                                                       const int* __restrict__ idx,
-                                                       int4* __restrict__ out, int blk) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = warp; j < blk; j += 4)
-    out[j * kRowVec + lane] =
-        __ldg(tab + static_cast<size_t>(__ldg(idx + j * kRow)) * kRowVec + lane);
+// Warp w of block b writes output row j = 4b + w.
+__global__ void __launch_bounds__(kLoopRows * 32) row_loop_kernel(const int4* __restrict__ tab,
+                                                                  const int* __restrict__ idx,
+                                                                  int4* __restrict__ out,
+                                                                  int blk) {
+  const int j = blockIdx.x * kLoopRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (j >= blk) return;
+  const int r = __ldg(idx + static_cast<size_t>(j) * kRow);
+  out[static_cast<size_t>(j) * kRowVec + lane] =
+      __ldg(tab + static_cast<size_t>(r) * kRowVec + lane);
+}
+
+// One warp a block; lane k < 16 issues row k's copy. Only bulk copies
+// touch the buffer (written by the loads, read by the store, both in the
+// async proxy, ordered by the barrier's phase), so no proxy fence is
+// needed. Each wait comes after a __syncwarp or in the lane that issued
+// the phase's copy, so every copy that a phase needs has been issued when
+// it is waited for. In the serial chain only the issuing lane waits: were
+// every lane to wait, a lane that ran ahead could complete the next row,
+// flipping the parity back, before a slower lane's wait had seen the
+// first, and that lane would spin for good.
+template <bool kPipelined>
+__global__ void __launch_bounds__(32) gather_rows_async_kernel(const int* __restrict__ ids,
+                                                               const int4* __restrict__ tab,
+                                                               int4* __restrict__ out) {
+  __shared__ __align__(128) int4 buf[kIds * kRowVec];
+  __shared__ uint64_t bar;
+  const int lane = threadIdx.x;
+  const int4* row =
+      lane < kIds ? tab + static_cast<size_t>(__ldg(ids + blockIdx.x * kIds + lane)) * kRowVec
+                  : nullptr;
+  if (lane == 0) {
+    mbar_init(&bar, 1);
+    if (kPipelined) mbar_arm(&bar, kIds * kRowBytes);
+  }
+  __syncwarp();
+  if (kPipelined) {
+    if (lane < kIds) bulk_load(buf + lane * kRowVec, row, kRowBytes, &bar);
+    __syncwarp();
+  } else {
+    for (int k = 0; k < kIds; ++k) {
+      if (lane == k) {
+        mbar_arm(&bar, kRowBytes);
+        bulk_load(buf + k * kRowVec, row, kRowBytes, &bar);
+        mbar_wait(&bar, k & 1);
+      }
+      __syncwarp();
+    }
+  }
+  if (lane == 0) {
+    mbar_wait(&bar, kPipelined ? 0 : (kIds - 1) & 1);  // the last phase
+    bulk_store(out + static_cast<size_t>(blockIdx.x) * kIds * kRowVec, buf, kIds * kRowBytes);
+  }
 }
 
 }  // namespace
 
 #ifndef PROBES3_HOST_TEST
 namespace {
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// One warp a block: lane l copies bytes 16l..16l+15 of each row and
-// stores the same bytes, so no lane reads another's copy.
-template <bool kPipelined>
-__global__ void __launch_bounds__(32) gather_rows_async_kernel(const int* __restrict__ ids,
-                                                               const int4* __restrict__ tab,
-                                                               int4* __restrict__ out) {
-  __shared__ __align__(16) int4 buf[kIds * kRowVec];
-  const int lane = threadIdx.x;
-  const int* bid = ids + blockIdx.x * kIds;
-  for (int k = 0; k < kIds; ++k) {
-    cp_async16(&buf[k * kRowVec + lane], tab + static_cast<size_t>(__ldg(bid + k)) * kRowVec + lane);
-    cp_async_commit();
-    if (!kPipelined) cp_async_wait_all();
-  }
-  cp_async_wait_all();
-  __syncwarp();
-  int4* o = out + static_cast<size_t>(blockIdx.x) * kIds * kRowVec;
-  for (int k = 0; k < kIds; ++k) o[k * kRowVec + lane] = buf[k * kRowVec + lane];
-}
 
 // Does nothing: its launch is the floor under every kernel's time.
 __global__ void empty_kernel() {}
@@ -198,7 +294,7 @@ extern "C" int gather_rows_smem_launch(const int* ids, const int* tab, int* out,
   return last_error();
 }
 
-// the same function by cp.async row copies, serial or pipelined
+// the same function by TMA bulk row copies, all in flight or each waited
 extern "C" int gather_rows_async_launch(const int* ids, const int* tab, int* out, int nb,
                                         int pipelined, cudaStream_t stream) {
   auto kern = pipelined ? gather_rows_async_kernel<true> : gather_rows_async_kernel<false>;
@@ -239,11 +335,12 @@ extern "C" int col_gather_launch(const int* tab, const int* idx, int* out, int b
   return last_error();
 }
 
-// out[j, :] = tab[idx[j, 0], :] for j < blk, by `programs` blocks
-extern "C" int row_loop_launch(const int* tab, const int* idx, int* out, int blk, int programs,
+// out[j, :] = tab[idx[j, 0], :] for j < blk, one warp a row
+extern "C" int row_loop_launch(const int* tab, const int* idx, int* out, int blk,
                                cudaStream_t stream) {
-  row_loop_kernel<<<programs, 128, 0, stream>>>(reinterpret_cast<const int4*>(tab), idx,
-                                                reinterpret_cast<int4*>(out), blk);
+  if (blk > 0)
+    row_loop_kernel<<<row_loop_blocks(blk), kLoopRows * 32, 0, stream>>>(
+        reinterpret_cast<const int4*>(tab), idx, reinterpret_cast<int4*>(out), blk);
   return last_error();
 }
 

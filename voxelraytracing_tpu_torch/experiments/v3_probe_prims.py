@@ -9,7 +9,8 @@ launches its kernel on CUDA tensors and runs its plain PyTorch version on
 CPU tensors:
 
   * :func:`gather_rows_smem` (P1, ``k_smem``) and :func:`gather_rows_async`
-    (P2, ``k_dma``): ``out[i, k, :] = tab[ids[i, k], :]``; plain version
+    (P2, ``k_dma``, by TMA bulk copies on an mbarrier):
+    ``out[i, k, :] = tab[ids[i, k], :]``; plain version
     :func:`gather_rows_ref`. As written, ``k_smem`` does not trace: its out
     block is ``(1, 16, 128)`` and ``o_ref[pl.ds(k, 1), :]`` indexes the
     leading axis of size 1, so on the TPU its ``try`` printed "P1 FAIL".
@@ -77,12 +78,21 @@ def gather_rows_smem(ids, tab):
 gather_rows_smem.launches = 0  # kernel launches since the last reset
 
 
-def gather_rows_async(ids, tab, *, pipelined=False):
-    """P2: the same function as :func:`gather_rows_smem` by ``cp.async``
-    row copies into shared memory (``gather_rows_async_kernel``): each row
-    waited for before the next (the probe's ``start(); wait()``), or with
-    ``pipelined`` all 16 in flight; :func:`gather_rows_ref` on the CPU."""
+def gather_rows_async(ids, tab, *, pipelined=True):
+    """P2: the same function as :func:`gather_rows_smem` by TMA bulk row
+    copies (``cp.async.bulk``, 512 bytes each) into shared memory that
+    complete on an mbarrier, and one bulk store of each block's 16 rows
+    (``gather_rows_async_kernel``): all 16 in flight at once, or with
+    ``pipelined=False`` each waited for before the next is issued (the
+    probe's ``start(); wait()``); :func:`gather_rows_ref` on the CPU. The
+    bulk copies need ``tab`` and the output 16-byte aligned: a ``tab``
+    that is not raises, on either device (the output is the wrapper's own
+    allocation, which torch aligns to 512 bytes)."""
     dev = _gather_checks(ids, tab, "gather_rows_async")
+    if tab.data_ptr() % 16:
+        raise ValueError("tab: gather_rows_async copies rows with "
+                         "cp.async.bulk, which needs a 16-byte aligned "
+                         f"table; this one starts at {tab.data_ptr():#x}")
     if dev.type == "cpu":
         return gather_rows_ref(ids, tab)
     out = torch.empty((ids.shape[0], IDS, ROW), dtype=torch.int32, device=dev)
@@ -198,10 +208,10 @@ def main():
     probes = [
         ("P1 smem-scalar 16-row copies x254blk",
          lambda: gather_rows_smem(ids, tab), want),
-        ("P2 cp.async 16 rows x254blk, serial",
+        ("P2 TMA bulk, 16 rows in flight x254blk",
          lambda: gather_rows_async(ids, tab), want),
-        ("P2 cp.async 16 rows x254blk, pipelined",
-         lambda: gather_rows_async(ids, tab, pipelined=True), want),
+        ("P2 TMA bulk, each row waited x254blk",
+         lambda: gather_rows_async(ids, tab, pipelined=False), want),
         ("P3 64 scalar extracts, one block", lambda: extract_sum(tab[:BLK]),
          extract_sum_ref(tab[:BLK])),
         ("P4 torch u8 gather 2M (library call)",

@@ -6,14 +6,14 @@ Port of ``experiments/v3_probe_subgather.py``, the TPU probe script. Its
 two Pallas kernels become kernels of ``csrc/probes3.cu``; each wrapper
 launches its kernel on CUDA tensors and runs its plain PyTorch version on
 CPU tensors. The probe's 256 programs all write the same [64, 128] block,
-which on the TPU's sequential grid repeats one program's work:
+which on the TPU's sequential grid repeats one program's work; each
+kernel here computes the block once, by a grid sized to the output:
 
   * :func:`col_gather` (``vec``, ``k_gather``): ``out[j, l] =
-    tab[idx[j, l], l]``, computed once, by a grid sized to the output;
-    plain version :func:`col_gather_ref`.
+    tab[idx[j, l], l]``, one thread for each 4 output words; plain version
+    :func:`col_gather_ref`.
   * :func:`row_loop` (``loop``, ``k_loop``): ``out[j, :] = tab[idx[j, 0],
-    :]``, still in the probe's ``PROGRAMS`` blocks; plain version
-    :func:`row_loop_ref`.
+    :]``, one warp a row; plain version :func:`row_loop_ref`.
 
     python -m voxelraytracing_tpu_torch.experiments.v3_probe_subgather vec|loop
 """
@@ -28,13 +28,18 @@ from ..ops.wavefront4 import _check, _device_of, _run
 from .v3_probe_prims import NROWS, ROW, cuda_ms
 
 BLK = 64
-PROGRAMS = 256  # row_loop's blocks, the probe's programs
 COL_BLOCK_WORDS = 4 * 128  # a col_gather block: 128 threads, 4 words each
+LOOP_BLOCK_ROWS = 4  # a row_loop block: 4 warps, a row each
 
 
 def col_gather_blocks(blk):
     """``col_gather_kernel``'s grid for ``blk`` output rows."""
     return -(-blk * ROW // COL_BLOCK_WORDS)
+
+
+def row_loop_blocks(blk):
+    """``row_loop_kernel``'s grid for ``blk`` output rows."""
+    return -(-blk // LOOP_BLOCK_ROWS)
 
 
 def col_gather_ref(tab, idx):
@@ -48,7 +53,7 @@ def row_loop_ref(tab, idx):
     return torch.stack([tab[i] for i in idx[:, 0].tolist()])
 
 
-def _run_probe(fn, name, tab, idx, *grid):
+def _run_probe(fn, name, tab, idx):
     dev = _device_of(tab, name)
     _check(dev, [("tab", tab, torch.int32, (tab.shape[0], ROW)),
                  ("idx", idx, torch.int32, (idx.shape[0], ROW))])
@@ -56,7 +61,7 @@ def _run_probe(fn, name, tab, idx, *grid):
         return None
     out = torch.empty(idx.shape, dtype=torch.int32, device=dev)
     _run(dev, name, getattr(_build.load("probes3"), name + "_launch"),
-         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], *grid)
+         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0])
     fn.launches += 1
     return out
 
@@ -75,9 +80,10 @@ col_gather.launches = 0  # kernel launches since the last reset
 
 def row_loop(tab, idx):
     """``loop``: the rows ``tab[idx[j, 0]]`` -> i32[blk, 128]:
-    ``row_loop_kernel`` in ``PROGRAMS`` blocks, one warp a row, on CUDA;
-    :func:`row_loop_ref` on the CPU."""
-    out = _run_probe(row_loop, "row_loop", tab, idx, PROGRAMS)
+    ``row_loop_kernel``, one warp a row (one broadcast load of its id, one
+    16-byte load and store a lane), on CUDA; :func:`row_loop_ref` on the
+    CPU."""
+    out = _run_probe(row_loop, "row_loop", tab, idx)
     return row_loop_ref(tab, idx) if out is None else out
 
 
@@ -111,7 +117,7 @@ def main(argv):
     print(f"correct(vec semantics): {torch.equal(r, col_gather_ref(tab, idx))} "
           f"correct(row semantics): {torch.equal(r, row_loop_ref(tab, idx))}")
     ms = cuda_ms(lambda: kern(tab, idx))
-    blocks = col_gather_blocks(BLK) if kern is col_gather else PROGRAMS
+    blocks = (col_gather_blocks if kern is col_gather else row_loop_blocks)(BLK)
     print(f"{which}: OK {ms * 1e3:.2f} us/call ({blocks} blocks)", flush=True)
     return ms
 
