@@ -503,14 +503,14 @@ def _flat(out):
 def _held(kernel, ref, args, kw):
     """One call of the wrapper ``kernel`` on the card held against its
     plain version ``ref`` on the same inputs, word for word. The wrapper
-    counts one call, and ``march2`` ``1 + sub_rounds`` CUDA launches
-    inside it. Returns the kernel's outputs."""
+    counts one call, and ``march2`` one CUDA launch inside it. Returns the
+    kernel's outputs."""
     before = kernel.launches, getattr(kernel, "cuda_launches", 0)
     out = kernel(*args, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before[0] + 1
     if hasattr(kernel, "cuda_launches"):
-        assert kernel.cuda_launches == before[1] + 1 + kw["sub_rounds"]
+        assert kernel.cuda_launches == before[1] + 1
     for a, b in zip(_flat(out), _flat(ref(*args, **kw)), strict=True):
         if a.dtype.is_floating_point:
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -596,6 +596,21 @@ def test_march3_kernel_compacted_and_lookahead(card_world, lookahead):
     assert all(la == lookahead for _, _, la in seen)
 
 
+def test_march3_kernel_tail_launches(card_world):
+    """The launches past round 5 of a frame, which run up to 30 sub-rounds
+    (a program ends them early once none of its rays can progress), word
+    for word: camera rays and the shadow bundle."""
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    rg, _, mats = card_world
+    cam = CamData.create(*CAMS[0], 70.0, (200, 120))
+    with _Both(t3, "march3") as both:
+        t3.render_frame3(rg, cam, mats.color, sun_pos=SUN, shadows=True,
+                         rounds=12, step_cap=500)
+    tails = [a for a, _ in both.calls if float(a[0][22]) == 30.0]
+    assert tails and any(a[6] is not None for a in tails)
+
+
 def test_march3_rejects_bad_inputs(card_world):
     from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 
@@ -658,6 +673,24 @@ def test_march2_go_is_program_wide(v1_world):
     args, kw = go_probe(v1_world, "cuda")
     out = _held(t2.march2, t2.march2_ref, args, kw)
     assert int(args[14][STRANDED]) == 1 and int(out[3][STRANDED]) == 0
+
+
+def test_march2_cluster_go_and_early_stop(v1_world):
+    """Two programs of a hand-made round (tests/torch_v2_state.py
+    ``go_probe2``): the first program's stepper sits in another block of
+    its cluster than the stranded ray, so only a program-wide ``go``
+    demotes that ray, which then stops stepping (at one step, of the 24
+    of two sub-rounds); the second program's ``go`` is false and its
+    stranded ray stays."""
+    from torch_v2_state import STRANDED, go_probe2
+
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+
+    args, kw = go_probe2(v1_world, "cuda")
+    out = _held(t2.march2, t2.march2_ref, args, kw)
+    lvl, stp = out[3], out[9]
+    assert int(lvl[STRANDED]) == 0 and int(stp[STRANDED]) == 1
+    assert int(lvl[256 + STRANDED[0], STRANDED[1]]) == 1
 
 
 def test_march2_rejects_bad_inputs(v1_world):

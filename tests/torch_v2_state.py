@@ -11,7 +11,11 @@ One program of 256 tiles, every ray inactive but two:
 The JAX kernel runs the program's sub-rounds because the stepper can
 march, and every ray of the program takes the steps: the stranded ray is
 demoted to brick level at its first step (wavefront2.py:298). A per-tile
-``go`` would leave it at voxel level. Imports only the port and NumPy.
+``go`` would leave it at voxel level. ``go_probe2`` lays two such
+programs side by side: the first with its stepper moved to tile 40, in
+another block of the program's cluster than the stranded ray's tile 0
+(csrc/march2.cu), the second with no stepper, so its ``go`` is false.
+Imports only the port and NumPy.
 """
 
 import numpy as np
@@ -72,3 +76,16 @@ def go_probe(rg, device):
                            device=device)]
             + [dev(state[k]) for k in t2.STATE])
     return args, dict(sub_rounds=2, nb=nb, bg_side=bg_side)
+
+
+def go_probe2(rg, device):
+    """``(args, kw)`` of one :func:`~wavefront2.march2` call of two
+    programs (see the module's docstring)."""
+    args, kw = go_probe(rg, device)
+    planes = [torch.cat([x, x]) for x in args[1:4] + args[11:]]
+    per_prog = [torch.cat([x, x]) for x in args[6:11]]
+    active = planes[3 + 1]
+    active[STEPPER] = 0
+    active[40, STEPPER[1]] = 1
+    active[t2._BLK + STEPPER[0], STEPPER[1]] = 0
+    return [args[0]] + planes[:3] + args[4:6] + per_prog + planes[3:], kw

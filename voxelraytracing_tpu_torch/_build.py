@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, or ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     "march2": {
-        "march2_launch": (_I, [_P] * 34 + [_I] * 4 + [_P]),
+        "march2_launch": (_I, [_P] * 33 + [_I] * 4 + [_P]),
     },
     "march3": {
         "march3_launch": (_I, [_P] * 13 + [_I] * 7 + [_P]),

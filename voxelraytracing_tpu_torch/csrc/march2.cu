@@ -16,42 +16,63 @@
 //     of a running program takes the steps, also one that cannot march: a
 //     level-1 ray whose position left its brick is demoted, and a ray past
 //     its slab exit retires, as soon as any tile of its program steps.
-//     A frame is therefore 1 + sub_rounds launches over all tiles: the
-//     first ORs each program's starting `go` into a flag; sub-round s
-//     steps the tiles whose program's flag s is set and ORs the program's
-//     flag s + 1 from the state it leaves (the tile rows are a pure
-//     function of the state and the caches, so each launch recomputes
-//     them); the last also writes the wants;
-//   * one 128-thread block per tile, a ray a thread: the tile's window
+//     A round is one launch: a program is a cluster of eight 1,024-thread
+//     blocks on eight SMs, and each `go` is a __syncthreads_or in each
+//     block whose results the blocks write into each other's shared
+//     memory (DSMEM) across one cluster barrier;
+//   * warp w of block b owns tile 32b + w of the program, each thread 4
+//     rays: ray k of a thread is lanes 32k + lane. The tile's window
 //     (`twid`, the smallest cached window a brick-level ray stands in,
-//     :210-214) and its wanted window (:387-391) are block min-reductions;
-//     the 8 brick slots are butterfly mins over aligned 16-lane groups
-//     (:232-235), "first group j wins" fixes each ray's slot (:244-245),
-//     and the 16 brick wants are mins over 8-lane groups (:398-404): warp
-//     shuffles;
-//   * the tile's composed rows — the window's descend and liquid rows and
-//     the 8-slot content row, 16 words of the brick cached at each group's
-//     slot (:246-257) — go to shared memory, read by every step.
+//     :210-214) and its wanted window (:387-391) are warp min-reductions
+//     over 4 rays a thread; the 8 brick slots are mins over aligned
+//     16-lane groups (:232-235, group 2k + lane / 16), "first group j
+//     wins" fixes each ray's slot (:244-245), and the 16 brick wants are
+//     mins over 8-lane groups (:398-404);
+//   * the step reads the tile's window rows and each group's brick content
+//     (:246-257) straight from the program's cache in shared memory, by
+//     the tile's window slot and each group's brick slot.
+// What bounds it: the state planes cross device memory once a round (40
+// bytes a ray each way, 12 of directions), and the instructions of each
+// boundary and each step with their dependent shared-memory reads. On an
+// H100 about 15 clusters of eight fit at once, so a 1080p round (64
+// programs) runs in five waves (chip_profile.py). So:
+//   * the ten state planes and the directions are read once into shared
+//     memory, stay there across the sub-rounds, and are written once; an
+//     inactive ray takes no step (its step changes nothing);
+//   * a ray steps only while a step changes it: a step is a function of
+//     the ray's state and its tile's rows, so a step that leaves its steps,
+//     level and activity as they were leaves all of it, and so would every
+//     later step of the sub-round (as the plain version's working set);
+//   * a cached brick's slot (the last of equal ids) is a lookup in a
+//     128-entry hash of the program's 64 brick ids, built once a launch.
 // Built with --fmad=false and in the plain version's op order: positions
 // o + d*t land on voxel faces, where one ulp flips floor().
-//
-// What bounds it: the state planes, read and written once a sub-round
-// (40 bytes a ray each way, plus the directions), and the dependent
-// shared-memory reads of every step; a ray whose program runs takes all 12
-// steps of the sub-round, as on the TPU.
 
 #include "march4_common.cuh"
 
+#include <cooperative_groups.h>
+
+#ifndef DYN_SMEM  // the host stand-in (tests/torch_cuda_host.h) gives each block its own
+#define DYN_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
 using v4::kBig;
 using v4::kBigIv;
 using v4::kEpsT;
 
 constexpr int kBlk2 = 256;        // tiles per program
 constexpr int kLanes = 128;       // rays per tile
+constexpr int kCluster2 = 8;      // blocks per program
+constexpr int kThreads2 = 1024;   // a block: 32 warps, a tile each
+constexpr int kTilesB = kBlk2 / kCluster2;
+constexpr int kRaysB = kTilesB * kLanes;
+constexpr int kRays = 4;          // rays per thread
 constexpr int kNw = 8;            // cached windows per program
 constexpr int kNb = 64;           // cached bricks per program
+constexpr int kHash = 128;        // brick-id hash entries
 constexpr int kWantB = 16;        // brick wants per tile
 constexpr int kSubSteps = 12;     // march steps a sub-round
 constexpr int kBigi = 0x3FFFFFFF;
@@ -71,6 +92,23 @@ struct Planes {
   int* stp;
 };
 
+// A block's shared memory: its program's context and cache, each tile's
+// brick-slot groups, and the state planes and directions of its 4,096
+// rays.
+struct Smem2 {
+  unsigned gj[kLanes], gl[kLanes];  // global jumpable / all-liquid window bits
+  int wid[kNw], bid[kNb];           // cached window and brick ids
+  int hkey[kHash], hval[kHash];     // brick id -> its last slot
+  unsigned bwc[kNw * kLanes], lwc[kNw * kLanes];  // cached windows' descend, liquid rows
+  unsigned cnt[kNb * 16];           // cached bricks' content
+  float scal[8];
+  int orf[2 * kCluster2];           // the cluster's OR words
+  int grp[kTilesB * 8];             // each tile's groups: (brick << 6) | slot, kBigi none
+  float t[kRaysB], wat[kRaysB], wen[kRaysB], dx[kRaysB], dy[kRaysB], dz[kRaysB];
+  int act[kRaysB], hit[kRaysB], lvl[kRaysB], cb[kRaysB], ax[kRaysB], vox[kRaysB],
+      stp[kRaysB];
+};
+
 struct State {
   float t, wat, wen;
   int lvl, cb, ax, vox, stp;
@@ -82,51 +120,47 @@ struct Ray2 {
   bool sx, sy, sz;
 };
 
-// What one launch reads of its program: the scalar row (ox, oy, oz,
-// n_liquid, v), the global window bits and the cache ids, in shared memory.
+// What the steps read of the program beside the cache: the scalar row
+// (ox, oy, oz, n_liquid, v) and the world's edges in windows and bricks.
 struct Ctx {
   float ox, oy, oz, v;
   int n_liquid, nb, bg_side;
-  const unsigned* gj;  // [128]
-  const unsigned* gl;  // [128]
-  const int* wid;      // [8]
-  const int* bid;      // [64]
 };
 
-__device__ __forceinline__ State load_state(const Planes& p, size_t o) {
+__device__ __forceinline__ State load_state(const Smem2& sm, int i) {
   State s;
-  s.t = p.t[o];
-  s.act = p.act[o] != 0;
-  s.hit = p.hit[o] != 0;
-  s.lvl = p.lvl[o];
-  s.cb = p.cb[o];
-  s.ax = p.ax[o];
-  s.vox = p.vox[o];
-  s.wat = p.wat[o];
-  s.wen = p.wen[o];
-  s.stp = p.stp[o];
+  s.t = sm.t[i];
+  s.act = sm.act[i] != 0;
+  s.hit = sm.hit[i] != 0;
+  s.lvl = sm.lvl[i];
+  s.cb = sm.cb[i];
+  s.ax = sm.ax[i];
+  s.vox = sm.vox[i];
+  s.wat = sm.wat[i];
+  s.wen = sm.wen[i];
+  s.stp = sm.stp[i];
   return s;
 }
 
-__device__ __forceinline__ void store_state(const Planes& p, size_t o, const State& s) {
-  p.t[o] = s.t;
-  p.act[o] = s.act ? 1 : 0;
-  p.hit[o] = s.hit ? 1 : 0;
-  p.lvl[o] = s.lvl;
-  p.cb[o] = s.cb;
-  p.ax[o] = s.ax;
-  p.vox[o] = s.vox;
-  p.wat[o] = s.wat;
-  p.wen[o] = s.wen;
-  p.stp[o] = s.stp;
+__device__ __forceinline__ void store_state(Smem2& sm, int i, const State& s) {
+  sm.t[i] = s.t;
+  sm.act[i] = s.act ? 1 : 0;
+  sm.hit[i] = s.hit ? 1 : 0;
+  sm.lvl[i] = s.lvl;
+  sm.cb[i] = s.cb;
+  sm.ax[i] = s.ax;
+  sm.vox[i] = s.vox;
+  sm.wat[i] = s.wat;
+  sm.wen[i] = s.wen;
+  sm.stp[i] = s.stp;
 }
 
-__device__ __forceinline__ Ray2 load_ray(const Ctx& c, const float* dx, const float* dy,
-                                         const float* dz, size_t o) {
+// Inverse direction, signs and slab exit of a direction.
+__device__ __forceinline__ Ray2 ray_of(const Ctx& c, float dx, float dy, float dz) {
   Ray2 r;
-  r.dx = dx[o];
-  r.dy = dy[o];
-  r.dz = dz[o];
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
   r.ivx = v4::inv_dir(r.dx);
   r.ivy = v4::inv_dir(r.dy);
   r.ivz = v4::inv_dir(r.dz);
@@ -146,11 +180,11 @@ struct Pos {
   int bx, by, bz, wflat;
 };
 
-__device__ __forceinline__ Pos pos_at(const Ctx& c, const Ray2& r, float t) {
+__device__ __forceinline__ Pos pos_at(const Ctx& c, float dx, float dy, float dz, float t) {
   Pos q;
-  q.px = c.ox + r.dx * t;
-  q.py = c.oy + r.dy * t;
-  q.pz = c.oz + r.dz * t;
+  q.px = c.ox + dx * t;
+  q.py = c.oy + dy * t;
+  q.pz = c.oz + dz * t;
   q.bx = static_cast<int>(floorf(q.px * 0.25f));
   q.by = static_cast<int>(floorf(q.py * 0.25f));
   q.bz = static_cast<int>(floorf(q.pz * 0.25f));
@@ -167,76 +201,34 @@ __device__ __forceinline__ bool win_bit(const unsigned* plane, int wflat) {
   return ((plane[word] >> (wflat & 31)) & 1u) != 0;
 }
 
-__device__ __forceinline__ bool win_cached(const Ctx& c, int wflat) {
-  bool m = false;
-  for (int k = 0; k < kNw; ++k) m = m || (wflat == c.wid[k] && c.wid[k] >= 0);
-  return m;
+// The window cache slot of x: the last of equal ids, -1 if none or x < 0.
+__device__ __forceinline__ int win_slot(const int* wid, int x) {
+  int slot = -1;
+#pragma unroll
+  for (int k = 0; k < kNw; k += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(wid + k);
+    slot = q.x == x ? k : slot;
+    slot = q.y == x ? k + 1 : slot;
+    slot = q.z == x ? k + 2 : slot;
+    slot = q.w == x ? k + 3 : slot;
+  }
+  return x >= 0 ? slot : -1;
+}
+
+__device__ __forceinline__ int brick_hash(int id) {
+  return static_cast<int>((static_cast<unsigned>(id) * 2654435761u) >> 25);
 }
 
 // The content-cache index of a brick: the last matching slot, -1 if none
-// (:161-167).
-__device__ __forceinline__ int cidx_of(const Ctx& c, int brick) {
-  int ci = -1;
-  for (int k = 0; k < kNb; ++k)
-    if (brick == c.bid[k] && c.bid[k] >= 0) ci = k;
-  return ci;
-}
-
-// Minimum of x over the block's 128 threads. `red` is 4 words of shared
-// memory; the leading barrier lets earlier readers of it (and of the
-// group-min words written after a call) finish first.
-__device__ __forceinline__ int block_min(int x, int* red) {
-  x = __reduce_min_sync(kFull, x);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  return min(min(red[0], red[1]), min(red[2], red[3]));
-}
-
-// Shared memory of a tile block.
-struct Smem {
-  unsigned gj[kLanes], gl[kLanes], bw[kLanes], lw[kLanes], slot[kLanes];
-  int wid[kNw], bid[kNb], comb[8], red[4];
-};
-
-// The tile rows (:186-263) from the state: the tile's window `twid`, each
-// ray's brick slot `sidx` and whether it can march; with `rows`, the
-// composed window rows and content row land in shared memory.
-__device__ __forceinline__ void boundary(const Ctx& c, Smem& sm, const Ray2& r, const State& s,
-                                         const int* bwc, const int* lwc, const int* cnt,
-                                         bool rows, int& twid, int& sidx, bool& can) {
-  const int lane = threadIdx.x;
-  const Pos q = pos_at(c, r, s.t);
-  const bool g_jump = win_bit(c.gj, q.wflat);
-  const bool wcached = win_cached(c, q.wflat);
-  const int wkey = (s.act && s.lvl == 0 && !g_jump && wcached) ? q.wflat : kBigi;
-  const int wmin = block_min(wkey, sm.red);
-  twid = wmin < kBigi ? wmin : -1;
-
-  const int cidx = cidx_of(c, s.cb);
-  const bool vmask = s.act && s.lvl == 1 && cidx >= 0;
-  int comb = vmask ? (s.cb << 6) | cidx : kBigi;
-  for (int sh = 1; sh <= 8; sh <<= 1) comb = min(comb, __shfl_xor_sync(kFull, comb, sh));
-  if ((lane & 15) == 0) sm.comb[lane >> 4] = comb;
-  __syncthreads();
-  sidx = -1;
-  for (int j = 0; j < 8; ++j) {
-    const int cj = sm.comb[j];
-    const int bsel = cj < kBigi ? cj >> 6 : -1;
-    if (vmask && s.cb == bsel && sidx < 0) sidx = j;
+// (:161-167), from the hash (at most 64 of its 128 entries are used, so a
+// probe ends at an empty one).
+__device__ __forceinline__ int cidx_of(const Smem2& sm, int brick) {
+  if (brick < 0) return -1;
+  for (int h = brick_hash(brick);; h = (h + 1) & (kHash - 1)) {
+    const int k = sm.hkey[h];
+    if (k == brick) return sm.hval[h];
+    if (k == -1) return -1;
   }
-  if (rows) {
-    int kt = -1;
-    for (int k = 0; k < kNw; ++k)
-      if (twid == c.wid[k] && c.wid[k] >= 0) kt = k;
-    sm.bw[lane] = kt >= 0 ? static_cast<unsigned>(bwc[kt * kLanes + lane]) : 0u;
-    sm.lw[lane] = kt >= 0 ? static_cast<unsigned>(lwc[kt * kLanes + lane]) : 0u;
-    const int cj = sm.comb[lane >> 4];
-    const int csel = cj < kBigi ? cj & 63 : -1;
-    sm.slot[lane] = csel >= 0 ? static_cast<unsigned>(cnt[csel * 16 + (lane & 15)]) : 0u;
-    __syncthreads();
-  }
-  can = s.act && ((s.lvl == 0 && (g_jump || q.wflat == twid)) || (s.lvl == 1 && sidx >= 0));
 }
 
 // DDA distances to the next cell planes (:169-184).
@@ -257,20 +249,24 @@ __device__ __forceinline__ float dda3(const Ray2& r, float px, float py, float p
   return dt;
 }
 
-// One step of the brick phase then the voxel phase (:265-370).
-__device__ __forceinline__ void step(const Ctx& c, const Smem& sm, const Ray2& r, int twid,
-                                     State& s, int& sidx) {
+// One step of the brick phase then the voxel phase (:265-370). The tile's
+// rows: its window `twid` at cache slot `kt` (-1: not cached, zero rows),
+// and its 8 brick-slot groups `grp`.
+__device__ __forceinline__ void step(const Ctx& c, const Smem2& sm, const Ray2& r, int twid,
+                                     int kt, const int* grp, State& s, int& sidx) {
   const int pre_lvl = s.lvl, pre_cb = s.cb;
   const float t0 = s.t;
-  const Pos q = pos_at(c, r, t0);
+  const Pos q = pos_at(c, r.dx, r.dy, r.dz, t0);
   const int lin = (q.bx & 15) + (q.by & 15) * 16 + (q.bz & 15) * 256;
   const int widx = lin >> 5;
   const int vx = static_cast<int>(floorf(q.px));
   const int vy = static_cast<int>(floorf(q.py));
   const int vz = static_cast<int>(floorf(q.pz));
   const int vlin = (vx & 3) + (vy & 3) * 4 + (vz & 3) * 16;
-  const int vidx = max(sidx, 0) * 16 + (vlin >> 2);
-  const unsigned word = sm.bw[widx], lword = sm.lw[widx], vword = sm.slot[vidx];
+  const unsigned word = kt >= 0 ? sm.bwc[kt * kLanes + widx] : 0u;
+  const unsigned lword = kt >= 0 ? sm.lwc[kt * kLanes + widx] : 0u;
+  const int g = grp[max(sidx, 0)];
+  const unsigned vword = g < kBigi ? sm.cnt[(g & 63) * 16 + (vlin >> 2)] : 0u;
 
   // brick phase (ops/wavefront.py:_post_brick)
   bool active = s.act && (t0 < r.t_exit);
@@ -282,8 +278,8 @@ __device__ __forceinline__ void step(const Ctx& c, const Smem& sm, const Ray2& r
     sidx = -1;
   }
   const bool bl = active && s.lvl == 0;
-  const bool g_jump = win_bit(c.gj, q.wflat);
-  const bool g_liq = win_bit(c.gl, q.wflat);
+  const bool g_jump = win_bit(sm.gj, q.wflat);
+  const bool g_liq = win_bit(sm.gl, q.wflat);
   const bool in_tile = q.wflat == twid;
   const bool match_b = bl && (g_jump || in_tile);
   const int shift = lin & 31;
@@ -340,104 +336,220 @@ __device__ __forceinline__ void step(const Ctx& c, const Smem& sm, const Ray2& r
   s.act = active;
 }
 
-// The tile's wants (:372-405): its smallest uncached window a brick-level
-// ray stands in, and the smallest uncached brick of each 8-lane group.
-__device__ __forceinline__ void wants(const Ctx& c, Smem& sm, const Ray2& r, const State& s,
-                                      int tile, int* want_win, int* want_br) {
-  const int lane = threadIdx.x;
-  const Pos q = pos_at(c, r, s.t);
-  const bool g_jump = win_bit(c.gj, q.wflat);
-  const bool wcached = win_cached(c, q.wflat);
-  const int wkey = (s.act && s.lvl == 0 && !g_jump && !wcached) ? q.wflat : kBigi;
-  const int wmin = block_min(wkey, sm.red);
-  if (lane == 0) want_win[tile] = wmin < kBigi ? wmin : -1;
-  int comb = (s.act && s.lvl == 1 && cidx_of(c, s.cb) < 0) ? s.cb : kBigi;
-  for (int sh = 1; sh <= 4; sh <<= 1) comb = min(comb, __shfl_xor_sync(kFull, comb, sh));
-  if ((lane & 7) == 0)
-    want_br[static_cast<size_t>(tile) * kWantB + (lane >> 3)] = comb < kBigi ? comb : -1;
+// x ORed over the program's eight blocks: each block's __syncthreads_or
+// goes into word `rank` of every block's set `parity` (DSMEM), read after
+// the cluster barrier. The sets alternate: a block writes set `parity`
+// again two calls later, after the barrier between, which every reader of
+// this call has reached.
+__device__ __forceinline__ bool cluster_or(const cg::cluster_group& cl, int* orf, int rank,
+                                           int& parity, bool x) {
+  const int b = __syncthreads_or(x);
+  if (threadIdx.x < kCluster2)
+    cl.map_shared_rank(orf, threadIdx.x)[parity * kCluster2 + rank] = b;
+  cl.sync();
+  bool r = false;
+#pragma unroll
+  for (int j = 0; j < kCluster2; ++j) r = r || orf[parity * kCluster2 + j] != 0;
+  parity ^= 1;
+  return r;
 }
 
-__device__ __forceinline__ Ctx load_ctx(Smem& sm, const float* scal, const int* gj, const int* gl,
-                                        const int* wid, const int* bid, int prog, int nb,
-                                        int bg_side) {
-  const int lane = threadIdx.x;
-  sm.gj[lane] = static_cast<unsigned>(gj[lane]);
-  sm.gl[lane] = static_cast<unsigned>(gl[lane]);
-  if (lane < kNw) sm.wid[lane] = wid[prog * kNw + lane];
-  if (lane < kNb) sm.bid[lane] = bid[prog * kNb + lane];
-  __syncthreads();
-  Ctx c;
-  c.ox = scal[0];
-  c.oy = scal[1];
-  c.oz = scal[2];
-  c.n_liquid = static_cast<int>(scal[3]);
-  c.v = scal[4];
-  c.nb = nb;
-  c.bg_side = bg_side;
-  c.gj = sm.gj;
-  c.gl = sm.gl;
-  c.wid = sm.wid;
-  c.bid = sm.bid;
-  return c;
-}
+// One round of every program: its sub-rounds while it can march, then the
+// wants. A tile with no active ray passes its planes through as they were.
+__global__ void __cluster_dims__(kCluster2, 1, 1) __launch_bounds__(kThreads2, 1)
+march2_kernel(const float* __restrict__ scal, const float* __restrict__ dx,
+              const float* __restrict__ dy, const float* __restrict__ dz,
+              const int* __restrict__ gj, const int* __restrict__ gl,
+              const int* __restrict__ wid, const int* __restrict__ bwc,
+              const int* __restrict__ lwc, const int* __restrict__ bid,
+              const int* __restrict__ cnt, Planes in, Planes out, int* __restrict__ want_win,
+              int* __restrict__ want_br, int nb, int bg_side, int sub_rounds) {
+  DYN_SMEM(dsm);
+  Smem2& sm = *reinterpret_cast<Smem2*>(dsm);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int prog = blockIdx.x / kCluster2;
+  const int tile = prog * kBlk2 + rank * kTilesB + warp;  // this warp's tile
+  int* grp = sm.grp + warp * 8;
+  auto off = [&](int k) { return static_cast<size_t>(tile) * kLanes + k * 32 + lane; };
+  auto idx = [&](int k) { return warp * kLanes + k * 32 + lane; };
 
-// Each program's starting `go` (:444): flag 1 where some ray of it can
-// march with the caches of this round.
-__global__ void __launch_bounds__(kLanes) march2_go_kernel(
-    const float* __restrict__ scal, const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const int* __restrict__ gj, const int* __restrict__ gl,
-    const int* __restrict__ wid, const int* __restrict__ bid, Planes in, int* __restrict__ go,
-    int nb, int bg_side) {
-  __shared__ Smem sm;
-  const int tile = blockIdx.x, prog = tile / kBlk2;
-  const size_t o = static_cast<size_t>(tile) * kLanes + threadIdx.x;
-  const Ctx c = load_ctx(sm, scal, gj, gl, wid, bid, prog, nb, bg_side);
-  const Ray2 r = load_ray(c, dx, dy, dz, o);
-  const State s = load_state(in, o);
-  int twid, sidx;
-  bool can;
-  boundary(c, sm, r, s, nullptr, nullptr, nullptr, false, twid, sidx, can);
-  if (__syncthreads_or(can) && threadIdx.x == 0) go[prog] = 1;
-}
-
-// Sub-round `sub` of every tile: 12 steps where the program's flag `sub`
-// is set, then the program's next flag; the first sub-round reads the
-// input planes, later ones the output planes in place; the last writes the
-// wants.
-__global__ void __launch_bounds__(kLanes) march2_sub_kernel(
-    const float* __restrict__ scal, const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const int* __restrict__ gj, const int* __restrict__ gl,
-    const int* __restrict__ wid, const int* __restrict__ bwc, const int* __restrict__ lwc,
-    const int* __restrict__ bid, const int* __restrict__ cnt, Planes in, Planes out,
-    int* __restrict__ want_win, int* __restrict__ want_br, int* __restrict__ go, int n_prog,
-    int sub, int sub_rounds, int nb, int bg_side) {
-  __shared__ Smem sm;
-  const int tile = blockIdx.x, prog = tile / kBlk2;
-  const bool run = go[sub * n_prog + prog] != 0;
-  const bool first = sub == 0, last = sub == sub_rounds - 1;
-  if (!run && !first && !last) return;  // the state already sits in `out`
-  const size_t o = static_cast<size_t>(tile) * kLanes + threadIdx.x;
-  const Ctx c = load_ctx(sm, scal, gj, gl, wid, bid, prog, nb, bg_side);
-  const Ray2 r = load_ray(c, dx, dy, dz, o);
-  State s = load_state(first ? in : out, o);
-  if (run) {
-    int twid, sidx;
-    bool can;
-    boundary(c, sm, r, s, bwc + static_cast<size_t>(prog) * kNw * kLanes,
-             lwc + static_cast<size_t>(prog) * kNw * kLanes,
-             cnt + static_cast<size_t>(prog) * kNb * 16, true, twid, sidx, can);
-    for (int k = 0; k < kSubSteps; ++k) step(c, sm, r, twid, s, sidx);
-    boundary(c, sm, r, s, nullptr, nullptr, nullptr, false, twid, sidx, can);
-    if (__syncthreads_or(can) && threadIdx.x == 0) go[(sub + 1) * n_prog + prog] = 1;
+  // the program's context and cache; the planes and directions, once
+  if (tid < kLanes) {
+    sm.gj[tid] = static_cast<unsigned>(gj[tid]);
+    sm.gl[tid] = static_cast<unsigned>(gl[tid]);
+    sm.hkey[tid] = -1;
   }
-  if (first || run) store_state(out, o, s);
-  if (last) wants(c, sm, r, s, tile, want_win, want_br);
+  if (tid < kNw) sm.wid[tid] = wid[prog * kNw + tid];
+  if (tid < kNb) sm.bid[tid] = bid[prog * kNb + tid];
+  if (tid < 8) sm.scal[tid] = scal[tid];
+  const size_t cache = static_cast<size_t>(prog) * kNw * kLanes;
+  sm.bwc[tid] = static_cast<unsigned>(bwc[cache + tid]);
+  sm.lwc[tid] = static_cast<unsigned>(lwc[cache + tid]);
+  sm.cnt[tid] = static_cast<unsigned>(cnt[static_cast<size_t>(prog) * kNb * 16 + tid]);
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t o = off(k);
+    const int i = idx(k);
+    sm.t[i] = in.t[o];
+    sm.act[i] = in.act[o];
+    sm.hit[i] = in.hit[o];
+    sm.lvl[i] = in.lvl[o];
+    sm.cb[i] = in.cb[o];
+    sm.ax[i] = in.ax[o];
+    sm.vox[i] = in.vox[o];
+    sm.wat[i] = in.wat[o];
+    sm.wen[i] = in.wen[o];
+    sm.stp[i] = in.stp[o];
+    sm.dx[i] = dx[o];
+    sm.dy[i] = dy[o];
+    sm.dz[i] = dz[o];
+  }
+  __syncthreads();
+  // the brick-id hash: each id's last slot, inserted in parallel
+  if (tid < kNb) {
+    const int id = sm.bid[tid];
+    bool last = id >= 0;
+    for (int j = tid + 1; j < kNb; ++j) last = last && sm.bid[j] != id;
+    if (last) {
+      int h = brick_hash(id);
+      while (atomicCAS(&sm.hkey[h], -1, id) != -1) h = (h + 1) & (kHash - 1);
+      sm.hval[h] = tid;
+    }
+  }
+  cl.sync();  // the hash in place, and every block of the cluster started
+
+  const Ctx c{sm.scal[0], sm.scal[1], sm.scal[2], sm.scal[4],
+              static_cast<int>(sm.scal[3]), nb, bg_side};
+  bool tact = false;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) tact = tact || sm.act[idx(k)] != 0;
+  const bool tile_any = __any_sync(kFull, tact);
+
+  // The tile rows (:186-263) from the state: the tile's window `twid` and
+  // its slot `kt`, the brick-slot groups, each ray's slot (plus one, 4
+  // bits a ray, in `sp`), and whether some ray of the program can march.
+  int twid = -1, kt = -1, parity = 0;
+  unsigned sp = 0;
+  auto boundary = [&]() {
+    int wmin = kBigi;
+    int comb[kRays], wf[kRays];
+    bool gjb[kRays], vm[kRays];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = idx(k);
+      wf[k] = 0;
+      gjb[k] = vm[k] = false;
+      comb[k] = kBigi;
+      if (sm.act[i] != 0) {
+        const Pos q = pos_at(c, sm.dx[i], sm.dy[i], sm.dz[i], sm.t[i]);
+        wf[k] = q.wflat;
+        gjb[k] = win_bit(sm.gj, q.wflat);
+        if (sm.lvl[i] == 0 && !gjb[k] && win_slot(sm.wid, q.wflat) >= 0)
+          wmin = min(wmin, q.wflat);
+        if (sm.lvl[i] == 1) {
+          const int ci = cidx_of(sm, sm.cb[i]);
+          vm[k] = ci >= 0;
+          if (vm[k]) comb[k] = static_cast<int>((static_cast<unsigned>(sm.cb[i]) << 6) | ci);
+        }
+      }
+    }
+    wmin = __reduce_min_sync(kFull, wmin);
+    twid = wmin < kBigi ? wmin : -1;
+    kt = win_slot(sm.wid, twid);
+    int g[8];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      g[2 * k] = __reduce_min_sync(kFull, lane < 16 ? comb[k] : kBigi);
+      g[2 * k + 1] = __reduce_min_sync(kFull, lane >= 16 ? comb[k] : kBigi);
+    }
+    if (lane == 0)
+      for (int j = 0; j < 8; ++j) grp[j] = g[j];
+    bool can = false;
+    sp = 0;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = idx(k);
+      const int cbk = sm.cb[i], lv = sm.lvl[i];
+      int sidx = -1;
+      if (vm[k])
+        for (int j = 7; j >= 0; --j)
+          if (cbk == (g[j] < kBigi ? g[j] >> 6 : -1)) sidx = j;
+      sp |= static_cast<unsigned>(sidx + 1) << (4 * k);
+      can = can || (sm.act[i] != 0 &&
+                    ((lv == 0 && (gjb[k] || wf[k] == twid)) || (lv == 1 && sidx >= 0)));
+    }
+    // the barrier inside orders the group words before the steps read them
+    return cluster_or(cl, sm.orf, rank, parity, can);
+  };
+
+  bool go = boundary();
+  for (int sr = 0; sr < sub_rounds && go; ++sr) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = idx(k);
+      if (sm.act[i] == 0) continue;  // an inactive ray's step changes nothing
+      State s = load_state(sm, i);
+      const Ray2 r = ray_of(c, sm.dx[i], sm.dy[i], sm.dz[i]);
+      int sidx = static_cast<int>((sp >> (4 * k)) & 15u) - 1;
+      for (int j = 0; j < kSubSteps; ++j) {
+        const int stp0 = s.stp, lvl0 = s.lvl;
+        step(c, sm, r, twid, kt, grp, s, sidx);
+        if (!s.act || (s.stp == stp0 && s.lvl == lvl0)) break;
+      }
+      store_state(sm, i, s);
+    }
+    // the boundary after the last sub-round would pick rows nothing reads
+    go = sr + 1 < sub_rounds && boundary();
+  }
+
+  // the tile's wants (:372-405): its smallest uncached window a brick-level
+  // ray stands in, and the smallest uncached brick of each 8-lane group
+  int wmin = kBigi;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int i = idx(k);
+    int wk = kBigi, bk = kBigi;
+    if (sm.act[i] != 0) {
+      const Pos q = pos_at(c, sm.dx[i], sm.dy[i], sm.dz[i], sm.t[i]);
+      if (sm.lvl[i] == 0 && !win_bit(sm.gj, q.wflat) && win_slot(sm.wid, q.wflat) < 0)
+        wk = q.wflat;
+      if (sm.lvl[i] == 1 && cidx_of(sm, sm.cb[i]) < 0) bk = sm.cb[i];
+    }
+    wmin = min(wmin, wk);
+    for (int sh = 1; sh <= 4; sh <<= 1) bk = min(bk, __shfl_xor_sync(kFull, bk, sh));
+    if ((lane & 7) == 0)
+      want_br[static_cast<size_t>(tile) * kWantB + 4 * k + (lane >> 3)] = bk < kBigi ? bk : -1;
+  }
+  wmin = __reduce_min_sync(kFull, wmin);
+  if (lane == 0) want_win[tile] = wmin < kBigi ? wmin : -1;
+
+  // the planes, once; a tile with an active ray holds active and hit as 0/1
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t o = off(k);
+    const int i = idx(k);
+    out.t[o] = sm.t[i];
+    out.act[o] = tile_any ? (sm.act[i] != 0 ? 1 : 0) : sm.act[i];
+    out.hit[o] = tile_any ? (sm.hit[i] != 0 ? 1 : 0) : sm.hit[i];
+    out.lvl[o] = sm.lvl[i];
+    out.cb[o] = sm.cb[i];
+    out.ax[o] = sm.ax[i];
+    out.vox[o] = sm.vox[i];
+    out.wat[o] = sm.wat[i];
+    out.wen[o] = sm.wen[i];
+    out.stp[o] = sm.stp[i];
+  }
 }
 
 }  // namespace
 
-// One round of the v2 march: 1 + sub_rounds launches on `stream`. `go`
-// holds (sub_rounds + 1) x n_prog zeroed words. Returns a cudaError_t.
+constexpr int kMarch2Smem = static_cast<int>(sizeof(Smem2));
+
+#ifndef MARCH2_HOST_TEST
+// One round of the v2 march: one launch on `stream` of T/256 clusters of
+// eight 1,024-thread blocks. Returns a cudaError_t (0 = cudaSuccess).
 extern "C" int march2_launch(const float* scal, const float* dx, const float* dy,
                              const float* dz, const int* gj, const int* gl, const int* wid,
                              const int* bwc, const int* lwc, const int* bid, const int* cnt,
@@ -445,19 +557,21 @@ extern "C" int march2_launch(const float* scal, const float* dx, const float* dy
                              int* ax_in, int* vox_in, float* wat_in, float* wen_in, int* stp_in,
                              float* t, int* act, int* hit, int* lvl, int* cb, int* ax, int* vox,
                              float* wat, float* wen, int* stp, int* want_win, int* want_br,
-                             int* go, int T, int nb, int bg_side, int sub_rounds,
-                             cudaStream_t stream) {
+                             int T, int nb, int bg_side, int sub_rounds, cudaStream_t stream) {
   const Planes in{t_in, act_in, hit_in, lvl_in, cb_in, ax_in, vox_in, wat_in, wen_in, stp_in};
   const Planes out{t, act, hit, lvl, cb, ax, vox, wat, wen, stp};
-  const int n_prog = T / kBlk2;
-  march2_go_kernel<<<T, kLanes, 0, stream>>>(scal, dx, dy, dz, gj, gl, wid, bid, in, go, nb,
-                                             bg_side);
-  cudaError_t e = cudaGetLastError();
-  for (int s = 0; s < sub_rounds && e == cudaSuccess; ++s) {
-    march2_sub_kernel<<<T, kLanes, 0, stream>>>(scal, dx, dy, dz, gj, gl, wid, bwc, lwc, bid, cnt,
-                                                in, out, want_win, want_br, go, n_prog, s,
-                                                sub_rounds, nb, bg_side);
-    e = cudaGetLastError();
+  // above the 48 KB default: opt in once (never again, so a CUDA-graph
+  // capture sees launches only)
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMarch2Smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = true;
   }
-  return static_cast<int>(e);
+  march2_kernel<<<(T / kBlk2) * kCluster2, kThreads2, kMarch2Smem, stream>>>(
+      scal, dx, dy, dz, gj, gl, wid, bwc, lwc, bid, cnt, in, out, want_win, want_br, nb,
+      bg_side, sub_rounds);
+  return static_cast<int>(cudaGetLastError());
 }
+#endif

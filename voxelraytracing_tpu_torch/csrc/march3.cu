@@ -13,38 +13,54 @@
 // only its program's cache block, so which rays finish in a launch depends
 // on what that block holds, and the reductions of the TPU kernel decide
 // which rays step at all. The design keeps each of their scopes:
-//   * one block of 1,024 threads per program, the whole program on one
-//     SM: the block's 101x128-word cache (51,712 bytes, dynamic shared
-//     memory above the 48 KB default) is staged once and read by every
-//     step; the program-wide "some ray can progress" (`go`, :680), the
-//     pass-through test (`any_active`, :988) and so the sub-round count
-//     are __syncthreads_or over the block;
-//   * warp w owns the two tiles (128-lane rows) 2w and 2w+1, each thread
-//     8 rays: ray k of a thread is row 2w + k/4, lanes 32(k%4) + lane. A
-//     tile's reductions — the subwindow its rays step in (`tsid`, the
-//     smallest cached id a stalled ray needs, :650-653), its window want
-//     and prefetch wants (:855-881) — are warp min-reductions over 4 rays
-//     a thread, and each 32-lane group's immediate want (:858-867) is one
-//     warp reduction at a fixed k.
-// The rays' carry between sub-rounds (t, water, water-enter, and the
-// active/hit/axes/id/steps word) lives in the output planes, which each
-// thread re-reads for its own rays; the flags word is packed at the end.
-// Within a sub-round a ray that does not move in a step cannot move later
-// in it (its position, and so its classification, stays), so it stops
-// stepping there; that changes no result.
-//
-// What bounds it: the dependent shared-memory bit gathers of every step
-// (classify, brick meta, voxel bit) and the divergence of a warp's rays,
-// latency rather than bandwidth; each launch streams the state planes
-// (36 bytes a ray in and out, plus 24 for per-ray bundles) and re-reads
-// them once per sub-round from L2. Built with --fmad=false: every multiply
-// and add rounds on its own as in the plain version, so positions on voxel
-// faces floor alike.
+//   * a program is a cluster of two 1,024-thread blocks on two SMs, each
+//     with its own copy of the 101x128-word cache block (51,712 bytes) in
+//     dynamic shared memory, read by every step. The program-wide "some
+//     ray can progress" (`go`, :680) and pass-through test (`any_active`,
+//     :988), and so the sub-round count, are a __syncthreads_or in each
+//     block whose results the blocks write into each other's shared
+//     memory (DSMEM) across one cluster barrier;
+//   * warp w of block b owns tile 32b + w of the program, each thread 4
+//     rays: ray k of a thread is lanes 32k + lane. A tile's reductions —
+//     the subwindow its rays step in (`tsid`, the smallest cached id a
+//     stalled ray needs, :650-653), its window want and prefetch wants
+//     (:855-881) — are warp min-reductions over 4 rays a thread, and each
+//     32-lane group's immediate want (:858-867) one at a fixed k.
+// What bounds it: not bytes (the state planes are read and written once a
+// launch) but the instructions of each ray's start, each sub-round's
+// boundary and each step, and the dependent shared-memory bit gathers of a
+// step. So each is done once where the TPU kernel's order allows:
+//   * a ray's terms (direction, inverse direction, slab exit; per-ray
+//     origins) are derived once a launch into shared memory planes, while
+//     the cache block's copies (cp.async) are in flight;
+//   * its carry (t, water, water-enter and a word of active, hit, exit
+//     axes, id and steps) stays in registers from the first sub-round to
+//     the last, and the state planes are written once;
+//   * a boundary classifies only active rays (an inactive ray adds nothing
+//     to a reduction), and resolves a cached window or subwindow slot (the
+//     last of equal ids, as the TPU compare chain leaves it) only where the
+//     step reads it: not in a jumpable global window, not past a jumpable
+//     subwindow;
+//   * the cell inverse is the exact power of two that 1.0f / cell rounds
+//     to, not a division;
+//   * a ray that does not move in a step cannot move later in the
+//     sub-round (its position, and so its classification, stays), so it
+//     stops stepping there; that changes no result.
+// Built with --fmad=false: every multiply and add rounds on its own as in
+// the plain version, so positions on voxel faces floor alike.
 
 #include "march4_common.cuh"
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
+#ifndef DYN_SMEM  // the host stand-in (tests/torch_cuda_host.h) gives each block its own
+#define DYN_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
 using v4::kBig;
 using v4::kBigIv;
 using v4::kCapNone;
@@ -52,23 +68,31 @@ using v4::kEpsT;
 
 constexpr int kBlk = 64;          // tiles per program
 constexpr int kLanes = 128;       // rays per tile
-constexpr int kThreads3 = 1024;
-constexpr int kRays = 8;          // rays per thread
+constexpr int kCluster = 2;       // blocks per program
+constexpr int kThreads3 = 1024;   // a block: 32 warps, a tile each
+constexpr int kTilesB = kBlk / kCluster;
+constexpr int kRaysB = kTilesB * kLanes;
+constexpr int kRays = 4;          // rays per thread
 constexpr int kNwc = 8;           // cached windows per program
 constexpr int kNsc = 16;          // cached subwindows per program
 constexpr int kMcRows = 5 + 6 * kNsc;
 constexpr int kMcWords = kMcRows * kLanes;
 constexpr int kBigi = 0x3FFFFFFF;
 constexpr int kScal3 = 27;
+constexpr int kScalPad = 28;
 // rows of a program's cache block
 constexpr int kRowGj = 0, kRowGl = 1, kRowWm = 2, kRowSm = 3, kRowIds = 4;
 constexpr int kRowSol = 5, kRowLiq = 5 + kNsc, kRowPid = 5 + 2 * kNsc;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// the ray planes in shared memory, kRaysB floats each; per-ray bundles add
+// their origins
+constexpr int kPDx = 0, kPDy = 1, kPDz = 2, kPIvx = 3, kPIvy = 4, kPIvz = 5, kPTex = 6;
+constexpr int kPOx = 7, kPOy = 8, kPOz = 9;
 
 struct Prog {
   const unsigned* mc;  // the cache block, in shared memory
   int nw, ns, gs, nwg;
-  float v;
+  float v, wcell, wicell;
 };
 
 struct Ray3 {
@@ -76,13 +100,32 @@ struct Ray3 {
   bool sx, sy, sz;
 };
 
-// A ray's carry between sub-rounds. In the flags plane during the march:
-// bit 0 active, 1 hit, 2-4 exit axes, 5-12 id, 13-31 steps.
+// A ray's carry between sub-rounds; packed in registers as t, water,
+// water-enter and a word: bit 0 active, 1 hit, 2-4 exit axes, 5-12 id,
+// 13-31 steps.
 struct Carry {
   float t, water, wenter;
   int axm, vox, stp;
   bool act, hit;
 };
+
+__device__ __forceinline__ unsigned pack(const Carry& c) {
+  return (c.act ? 1u : 0u) | (c.hit ? 2u : 0u) | (static_cast<unsigned>(c.axm) << 2) |
+         (static_cast<unsigned>(c.vox) << 5) | (static_cast<unsigned>(c.stp) << 13);
+}
+
+__device__ __forceinline__ Carry unpack(float t, float water, float wenter, unsigned f) {
+  Carry c;
+  c.t = t;
+  c.water = water;
+  c.wenter = wenter;
+  c.act = (f & 1u) != 0;
+  c.hit = (f & 2u) != 0;
+  c.axm = static_cast<int>((f >> 2) & 7u);
+  c.vox = static_cast<int>((f >> 5) & 0xFFu);
+  c.stp = static_cast<int>(f >> 13);
+  return c;
+}
 
 struct Cls {
   float px, py, pz;
@@ -95,10 +138,27 @@ __device__ __forceinline__ unsigned bit_of(const unsigned* row, int word, int sh
   return (row[word] >> sh) & 1u;
 }
 
+// The slot of x among n ids (n a multiple of 4, 16-byte aligned): the last
+// of equal ones, as the TPU compare chain leaves it; -1 if none or x < 0.
+__device__ __forceinline__ int last_slot(const unsigned* ids, int n, int x) {
+  int slot = -1;
+#pragma unroll
+  for (int k = 0; k < n; k += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(ids + k);
+    slot = q.x == x ? k : slot;
+    slot = q.y == x ? k + 1 : slot;
+    slot = q.z == x ? k + 2 : slot;
+    slot = q.w == x ? k + 3 : slot;
+  }
+  return x >= 0 ? slot : -1;
+}
+
 // Everything a step derives from the position at t (wavefront3.py
-// :594-641): voxel, window and subwindow ids, global-plane bits, the
-// cached window slot and its subwindow bits, the cached subwindow slot
-// (the last of equal slots, as the TPU compare chain leaves it).
+// :594-641): voxel, window and subwindow ids and the global-plane bits;
+// outside a jumpable global window the cached window slot and its
+// subwindow bits; with need_sslot, where the window is cached and the
+// subwindow not jumpable, the cached subwindow slot. Every caller reads
+// the slots and subwindow bits only there.
 __device__ __forceinline__ Cls classify(const Prog& p, const Ray3& r, float t, bool need_sslot) {
   Cls c;
   c.px = r.ox + r.dx * t;
@@ -113,22 +173,20 @@ __device__ __forceinline__ Cls classify(const Prog& p, const Ray3& r, float t, b
                     : c.w;
   c.gj = bit_of(p.mc + kRowGj * kLanes, wg >> 5, wg & 31) != 0;
   c.gl = bit_of(p.mc + kRowGl * kLanes, wg >> 5, wg & 31) != 0;
-  c.wslot = -1;
-  for (int k = 0; k < kNwc; ++k) {
-    const int id = static_cast<int>(p.mc[kRowIds * kLanes + k]);
-    if (c.w == id && id >= 0) c.wslot = k;
-  }
-  const int s_loc = ((c.vx >> 4) & 3) + ((c.vy >> 4) & 3) * 4 + ((c.vz >> 4) & 3) * 16;
-  const int mbase = max(c.wslot, 0) * 8 + (s_loc >> 5);
-  c.swj = bit_of(p.mc + kRowWm * kLanes, mbase, s_loc & 31) != 0;
-  c.swl = bit_of(p.mc + kRowWm * kLanes, mbase + 2, s_loc & 31) != 0;
   c.s = (c.vx >> 4) + (c.vy >> 4) * p.ns + (c.vz >> 4) * p.ns * p.ns;
+  c.wslot = -1;
   c.sslot = -1;
-  if (need_sslot)
-    for (int k = 0; k < kNsc; ++k) {
-      const int id = static_cast<int>(p.mc[kRowIds * kLanes + kNwc + k]);
-      if (c.s == id && id >= 0) c.sslot = k;
+  c.swj = c.swl = false;
+  if (!c.gj) {
+    c.wslot = last_slot(p.mc + kRowIds * kLanes, kNwc, c.w);
+    if (c.wslot >= 0) {
+      const int s_loc = ((c.vx >> 4) & 3) + ((c.vy >> 4) & 3) * 4 + ((c.vz >> 4) & 3) * 16;
+      const int mbase = c.wslot * 8 + (s_loc >> 5);
+      c.swj = bit_of(p.mc + kRowWm * kLanes, mbase, s_loc & 31) != 0;
+      c.swl = bit_of(p.mc + kRowWm * kLanes, mbase + 2, s_loc & 31) != 0;
+      if (need_sslot && !c.swj) c.sslot = last_slot(p.mc + kRowIds * kLanes + kNwc, kNsc, c.s);
     }
+  }
   return c;
 }
 
@@ -141,67 +199,30 @@ __device__ __forceinline__ float axis3(float pc, float ivc, bool sgn, float cell
   return fabsf(ivc) >= kBigIv ? kBig : dt;
 }
 
-// The ray of flat index o (tile `tile`, lane `ln`): a per-ray bundle's, or
-// the camera ray of its pixel (the frame tile from the tile map in a
-// compacted grid); inverse directions, signs and slab exit.
+// The terms of ray i of the block from its shared-memory planes.
 template <bool kPerRay>
-__device__ __forceinline__ Ray3 load_ray(const float* s, const float* rays, const int* tmap,
-                                         size_t plane, size_t o, int tile, int ln, int nsx) {
+__device__ __forceinline__ Ray3 ray_at(const float* rp, const float* s, int i) {
   Ray3 r;
   if (kPerRay) {
-    r.ox = rays[o];
-    r.oy = rays[plane + o];
-    r.oz = rays[2 * plane + o];
-    r.dx = rays[3 * plane + o];
-    r.dy = rays[4 * plane + o];
-    r.dz = rays[5 * plane + o];
+    r.ox = rp[kPOx * kRaysB + i];
+    r.oy = rp[kPOy * kRaysB + i];
+    r.oz = rp[kPOz * kRaysB + i];
   } else {
     r.ox = s[0];
     r.oy = s[1];
     r.oz = s[2];
-    const int tg = tmap ? tmap[static_cast<size_t>(tile) * 8] : tile;
-    const int sb = tg / kBlk, l = tg - sb * kBlk;
-    const int txi = (sb % nsx) * 8 + l % 8, tyi = (sb / nsx) * 8 + l / 8;
-    v4::camera_dir(s, txi * 16 + ln % 16, tyi * 8 + ln / 16, r.dx, r.dy, r.dz);
   }
-  r.ivx = v4::inv_dir(r.dx);
-  r.ivy = v4::inv_dir(r.dy);
-  r.ivz = v4::inv_dir(r.dz);
+  r.dx = rp[kPDx * kRaysB + i];
+  r.dy = rp[kPDy * kRaysB + i];
+  r.dz = rp[kPDz * kRaysB + i];
+  r.ivx = rp[kPIvx * kRaysB + i];
+  r.ivy = rp[kPIvy * kRaysB + i];
+  r.ivz = rp[kPIvz * kRaysB + i];
+  r.t_exit = rp[kPTex * kRaysB + i];
   r.sx = r.dx > 0.0f;
   r.sy = r.dy > 0.0f;
   r.sz = r.dz > 0.0f;
-  const float v = s[3];
-  const float slx = fmaxf((0.0f - r.ox) * r.ivx, (v - r.ox) * r.ivx);
-  const float sly = fmaxf((0.0f - r.oy) * r.ivy, (v - r.oy) * r.ivy);
-  const float slz = fmaxf((0.0f - r.oz) * r.ivz, (v - r.oz) * r.ivz);
-  r.t_exit = fminf(fminf(slx, fminf(sly, slz)), 4.0f * v + 16.0f);
   return r;
-}
-
-__device__ __forceinline__ Carry load_carry(const float* ts, const int* fl, const float* wa,
-                                            const float* we, size_t o) {
-  Carry c;
-  c.t = ts[o];
-  c.water = wa[o];
-  c.wenter = we[o];
-  const unsigned f = static_cast<unsigned>(fl[o]);
-  c.act = (f & 1u) != 0;
-  c.hit = (f & 2u) != 0;
-  c.axm = static_cast<int>((f >> 2) & 7u);
-  c.vox = static_cast<int>((f >> 5) & 0xFFu);
-  c.stp = static_cast<int>(f >> 13);
-  return c;
-}
-
-__device__ __forceinline__ void store_carry(float* ts, int* fl, float* wa, float* we, size_t o,
-                                            const Carry& c) {
-  ts[o] = c.t;
-  wa[o] = c.water;
-  we[o] = c.wenter;
-  fl[o] = static_cast<int>((c.act ? 1u : 0u) | (c.hit ? 2u : 0u) |
-                           (static_cast<unsigned>(c.axm) << 2) |
-                           (static_cast<unsigned>(c.vox) << 5) |
-                           (static_cast<unsigned>(c.stp) << 13));
 }
 
 // One step of an active ray inside the tile's subwindow `tsid` (cache slot
@@ -217,18 +238,20 @@ __device__ __forceinline__ bool step3(const Prog& p, const Ray3& r, Carry& c, in
     c.act = false;
     return false;
   }
-  const int b_loc = ((k.vx >> 2) & 3) + ((k.vy >> 2) & 3) * 4 + ((k.vz >> 2) & 3) * 16;
-  const int bbase = tslot * 8 + (b_loc >> 5);
-  const unsigned* sm = p.mc + kRowSm * kLanes;
-  const bool br_jump = bit_of(sm, bbase, b_loc & 31) != 0;
-  const bool br_liq = bit_of(sm, bbase + 2, b_loc & 31) != 0;
-  const int l = (k.vx & 15) + (k.vy & 15) * 16 + (k.vz & 15) * 256;
-  const bool vsolid = match && bit_of(p.mc + (kRowSol + tslot) * kLanes, l >> 5, l & 31) != 0;
-  const bool vliq = match && bit_of(p.mc + (kRowLiq + tslot) * kLanes, l >> 5, l & 31) != 0;
-
   const bool case1 = k.gj;
   const bool case2 = !k.gj && k.wslot >= 0 && k.swj;
   const bool case3 = !k.gj && k.wslot >= 0 && !k.swj && k.s == tsid;
+  bool br_jump = false, br_liq = false, vsolid = false, vliq = false;
+  if (case3) {
+    const int b_loc = ((k.vx >> 2) & 3) + ((k.vy >> 2) & 3) * 4 + ((k.vz >> 2) & 3) * 16;
+    const int bbase = tslot * 8 + (b_loc >> 5);
+    const unsigned* sm = p.mc + kRowSm * kLanes;
+    br_jump = bit_of(sm, bbase, b_loc & 31) != 0;
+    br_liq = bit_of(sm, bbase + 2, b_loc & 31) != 0;
+    const int l = (k.vx & 15) + (k.vy & 15) * 16 + (k.vz & 15) * 256;
+    vsolid = match && bit_of(p.mc + (kRowSol + tslot) * kLanes, l >> 5, l & 31) != 0;
+    vliq = match && bit_of(p.mc + (kRowLiq + tslot) * kLanes, l >> 5, l & 31) != 0;
+  }
   const bool in_br = case3 && br_jump;
   const bool in_vox = case3 && !br_jump;
   const bool hit_now = in_vox && vsolid;
@@ -241,8 +264,9 @@ __device__ __forceinline__ bool step3(const Prog& p, const Ray3& r, Carry& c, in
   }
   if (march && liquid && c.wenter < 0.0f) c.wenter = c.t;
   if (march) {
-    const float cell = case1 ? static_cast<float>(64 << p.gs) : case2 ? 16.0f : in_br ? 4.0f : 1.0f;
-    const float icell = 1.0f / cell;
+    // the cell and its inverse, an exact power of two
+    const float cell = case1 ? p.wcell : case2 ? 16.0f : in_br ? 4.0f : 1.0f;
+    const float icell = case1 ? p.wicell : case2 ? 0.0625f : in_br ? 0.25f : 1.0f;
     const float dtx = axis3(k.px, r.ivx, r.sx, cell, icell);
     const float dty = axis3(k.py, r.ivy, r.sy, cell, icell);
     const float dtz = axis3(k.pz, r.ivz, r.sz, cell, icell);
@@ -299,8 +323,8 @@ __device__ __forceinline__ void walk3(const Prog& p, const Ray3& r, float t, boo
       else if (ch[3] < 0) ch[3] = c.s;
     }
     if (j + 1 < lookahead) {
-      const float cell = c.gj ? static_cast<float>(64 << p.gs) : 16.0f;
-      const float icell = 1.0f / cell;
+      const float cell = c.gj ? p.wcell : 16.0f;
+      const float icell = c.gj ? p.wicell : 0.0625f;
       const float dt = fminf(axis3(c.px, r.ivx, r.sx, cell, icell),
                              fminf(axis3(c.py, r.ivy, r.sy, cell, icell),
                                    axis3(c.pz, r.ivz, r.sz, cell, icell)));
@@ -312,8 +336,26 @@ __device__ __forceinline__ void walk3(const Prog& p, const Ray3& r, float t, boo
 __device__ __forceinline__ int or_none(int x) { return x >= 0 ? x : kBigi; }
 __device__ __forceinline__ int none_of(int m) { return m < kBigi ? m : -1; }
 
+// x ORed over the program's two blocks: each block's __syncthreads_or goes
+// into word `rank` of every block's pair `parity` (DSMEM), read after the
+// cluster barrier. The pairs alternate: a block writes pair `parity` again
+// two calls later, after the barrier between, which every reader of this
+// call has reached.
+__device__ __forceinline__ bool cluster_or(const cg::cluster_group& cl, int* orf, int rank,
+                                           int& parity, bool x) {
+  const int b = __syncthreads_or(x);
+  if (threadIdx.x < kCluster)
+    cl.map_shared_rank(orf, threadIdx.x)[parity * kCluster + rank] = b;
+  cl.sync();
+  bool r = false;
+#pragma unroll
+  for (int j = 0; j < kCluster; ++j) r = r || orf[parity * kCluster + j] != 0;
+  parity ^= 1;
+  return r;
+}
+
 template <bool kPerRay>
-__global__ void __launch_bounds__(kThreads3, 1)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads3, 1)
 march3_kernel(const float* __restrict__ scal, const int* __restrict__ mc,
               const float* __restrict__ rays, const int* __restrict__ tmap,
               const float* __restrict__ ts_in, const int* __restrict__ fl_in,
@@ -321,61 +363,92 @@ march3_kernel(const float* __restrict__ scal, const int* __restrict__ mc,
               float* __restrict__ ts, int* __restrict__ fl, float* __restrict__ wa,
               float* __restrict__ we, int* __restrict__ want, int T, int nw, int ns, int nsx,
               int sub_rounds, int sub_steps, int lookahead) {
-  extern __shared__ unsigned smc[];
-  __shared__ float s[kScal3];
+  DYN_SMEM(dsm);
+  unsigned* smc = reinterpret_cast<unsigned*>(dsm);
+  float* s = reinterpret_cast<float*>(smc + kMcWords);
+  int* orf = reinterpret_cast<int*>(s + kScalPad);
+  float* rp = reinterpret_cast<float*>(orf + 2 * kCluster);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int* blk = mc + static_cast<size_t>(blockIdx.x) * kMcWords;
-  for (int i = tid; i < kMcWords; i += kThreads3) smc[i] = static_cast<unsigned>(blk[i]);
+  const int prog = blockIdx.x / kCluster;
+  const int tile = prog * kBlk + rank * kTilesB + warp;  // this warp's tile
+  const int* blk = mc + static_cast<size_t>(prog) * kMcWords;
+  // the cache block: copies in flight (cp.async) while the rays' terms are
+  // derived, from the scalar row in global memory
+  for (int i = tid; i < kMcWords; i += kThreads3) __pipeline_memcpy_async(smc + i, blk + i, 4);
+  __pipeline_commit();
   if (tid < kScal3) s[tid] = scal[tid];
-  __syncthreads();
 
   int gs = 0;
   while (((nw + (1 << gs) - 1) >> gs) > 16) ++gs;
-  const Prog p{smc, nw, ns, gs, (nw + (1 << gs) - 1) >> gs, s[3]};
-  const float v = s[3];
-  const int cap = s[23] > 0.5f ? static_cast<int>(s[23]) : kCapNone;
-  const int srd = s[22] > 0.5f ? static_cast<int>(s[22]) : sub_rounds;
-  const bool init = !kPerRay && s[24] > 0.5f;
-  const int row0 = blockIdx.x * kBlk + warp * 2;  // this warp's two tiles
+  const float wcell = static_cast<float>(64 << gs);
+  const float v = scal[3];
+  const Prog p{smc, nw, ns, gs, (nw + (1 << gs) - 1) >> gs, v, wcell, 1.0f / wcell};
+  const int cap = scal[23] > 0.5f ? static_cast<int>(scal[23]) : kCapNone;
+  const int srd = scal[22] > 0.5f ? static_cast<int>(scal[22]) : sub_rounds;
+  const bool init = !kPerRay && scal[24] > 0.5f;
   const size_t plane = static_cast<size_t>(T) * kLanes;
-  auto tile_of = [&](int k) { return row0 + (k >> 2); };
-  auto lane_of = [&](int k) { return (k & 3) * 32 + lane; };
-  auto off = [&](int k) { return static_cast<size_t>(tile_of(k)) * kLanes + lane_of(k); };
-  auto ray = [&](int k) {
-    return load_ray<kPerRay>(s, rays, tmap, plane, off(k), tile_of(k), lane_of(k), nsx);
-  };
+  auto off = [&](int k) { return static_cast<size_t>(tile) * kLanes + k * 32 + lane; };
+  auto idx = [&](int k) { return warp * kLanes + k * 32 + lane; };
+  // the frame tile of a camera ray (a compacted grid's from the tile map)
+  int txi = 0, tyi = 0;
+  if (!kPerRay) {
+    const int tg = tmap ? tmap[static_cast<size_t>(tile) * 8] : tile;
+    const int sb = tg / kBlk, l = tg - sb * kBlk;
+    txi = (sb % nsx) * 8 + l % 8;
+    tyi = (sb / nsx) * 8 + l / 8;
+  }
   // round-0 activity of a camera ray: a whole tile, the camera strictly
   // inside the world (wavefront3.py:956-971)
-  auto init_active = [&](int k) {
-    const int tg = tmap ? tmap[static_cast<size_t>(tile_of(k)) * 8] : tile_of(k);
-    const int sb = tg / kBlk, l = tg - sb * kBlk;
-    const int txi = (sb % nsx) * 8 + l % 8, tyi = (sb / nsx) * 8 + l / 8;
-    return static_cast<float>(txi) < s[25] && static_cast<float>(tyi) < s[26] && s[0] > 0.0f &&
-           s[0] < v && s[1] > 0.0f && s[1] < v && s[2] > 0.0f && s[2] < v;
-  };
+  const bool init_act = static_cast<float>(txi) < scal[25] && static_cast<float>(tyi) < scal[26] &&
+                        scal[0] > 0.0f && scal[0] < v && scal[1] > 0.0f && scal[1] < v &&
+                        scal[2] > 0.0f && scal[2] < v;
 
-  // a program with no active ray passes its state through
+  // the ray terms, once; the start carry: killed at the cap, outside the
+  // world or past the slab
   bool any = false;
-  for (int k = 0; k < kRays; ++k) any |= init ? init_active(k) : (fl_in[off(k)] & 1) != 0;
-  if (!__syncthreads_or(any)) {
-    for (int k = 0; k < kRays; ++k) {
-      const size_t o = off(k);
-      ts[o] = ts_in[o];
-      fl[o] = fl_in[o];
-      wa[o] = wa_in[o];
-      we[o] = we_in[o];
-    }
-    if (lane < 16) want[static_cast<size_t>(row0) * 8 + lane] = -1;
-    return;
-  }
-
-  // the start carry: killed at the cap, outside the world or past the slab
+  float ct[kRays], cw[kRays], ce[kRays];
+  unsigned cf[kRays];
+#pragma unroll
   for (int k = 0; k < kRays; ++k) {
     const size_t o = off(k);
-    const Ray3 r = ray(k);
+    const int i = idx(k);
+    Ray3 r;
+    if (kPerRay) {
+      r.ox = rays[o];
+      r.oy = rays[plane + o];
+      r.oz = rays[2 * plane + o];
+      r.dx = rays[3 * plane + o];
+      r.dy = rays[4 * plane + o];
+      r.dz = rays[5 * plane + o];
+      rp[kPOx * kRaysB + i] = r.ox;
+      rp[kPOy * kRaysB + i] = r.oy;
+      rp[kPOz * kRaysB + i] = r.oz;
+    } else {
+      r.ox = scal[0];
+      r.oy = scal[1];
+      r.oz = scal[2];
+      const int ln = k * 32 + lane;
+      v4::camera_dir(scal, txi * 16 + ln % 16, tyi * 8 + ln / 16, r.dx, r.dy, r.dz);
+    }
+    r.ivx = v4::inv_dir(r.dx);
+    r.ivy = v4::inv_dir(r.dy);
+    r.ivz = v4::inv_dir(r.dz);
+    const float slx = fmaxf((0.0f - r.ox) * r.ivx, (v - r.ox) * r.ivx);
+    const float sly = fmaxf((0.0f - r.oy) * r.ivy, (v - r.oy) * r.ivy);
+    const float slz = fmaxf((0.0f - r.oz) * r.ivz, (v - r.oz) * r.ivz);
+    r.t_exit = fminf(fminf(slx, fminf(sly, slz)), 4.0f * v + 16.0f);
+    rp[kPDx * kRaysB + i] = r.dx;
+    rp[kPDy * kRaysB + i] = r.dy;
+    rp[kPDz * kRaysB + i] = r.dz;
+    rp[kPIvx * kRaysB + i] = r.ivx;
+    rp[kPIvy * kRaysB + i] = r.ivy;
+    rp[kPIvz * kRaysB + i] = r.ivz;
+    rp[kPTex * kRaysB + i] = r.t_exit;
     Carry c;
     if (init) {
-      c = Carry{kEpsT, 0.0f, -1.0f, 0, 0, 0, init_active(k), false};
+      c = Carry{kEpsT, 0.0f, -1.0f, 0, 0, 0, init_act, false};
     } else {
       c.t = ts_in[o];
       c.water = wa_in[o];
@@ -387,111 +460,139 @@ march3_kernel(const float* __restrict__ scal, const int* __restrict__ mc,
       c.stp = (f >> 5) & 0xFFF;
       c.vox = (f >> 17) & 0xFF;
     }
+    any = any || c.act;
     const float px = r.ox + r.dx * c.t, py = r.oy + r.dy * c.t, pz = r.oz + r.dz * c.t;
     const bool inw = px >= 0.0f && py >= 0.0f && pz >= 0.0f && px < v && py < v && pz < v;
     c.act = c.act && c.stp < cap && inw && c.t < r.t_exit;
-    store_carry(ts, fl, wa, we, o, c);
+    ct[k] = c.t;
+    cw[k] = c.water;
+    ce[k] = c.wenter;
+    cf[k] = pack(c);
+  }
+  __pipeline_wait_prior(0);
+  cl.sync();  // the cache block in place, and every block of the cluster started
+
+  // a program with no active ray passes its state through
+  int parity = 0;
+  if (!cluster_or(cl, orf, rank, parity, any)) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const size_t o = off(k);
+      ts[o] = ts_in[o];
+      fl[o] = fl_in[o];
+      wa[o] = wa_in[o];
+      we[o] = we_in[o];
+    }
+    if (lane < 8) want[static_cast<size_t>(tile) * 8 + lane] = -1;
+    return;
   }
 
-  // each tile's subwindow for the next sub-round, and whether any ray of
-  // the program can progress (wavefront3.py:643-681)
-  int tsid[2], tslot[2];
-  bool match[2];
+  // the tile's subwindow for the next sub-round, and whether any ray of
+  // the program can progress (wavefront3.py:643-681); a thread reads only
+  // its own rays' planes, so no barrier guards them
+  int tsid = -1, tslot = 0;
+  bool match = false;
   auto boundary = [&]() {
-    int rmin[2] = {kBigi, kBigi};
+    int rmin = kBigi;
     bool base_can[kRays], need[kRays];
     int sv[kRays];
 #pragma unroll
     for (int k = 0; k < kRays; ++k) {
-      const Carry c = load_carry(ts, fl, wa, we, off(k));
-      const Cls q = classify(p, ray(k), c.t, true);
-      need[k] = c.act && !q.gj && q.wslot >= 0 && !q.swj;
-      if (need[k] && q.sslot >= 0) rmin[k >> 2] = min(rmin[k >> 2], q.s);
-      base_can[k] = c.act && (q.gj || (q.wslot >= 0 && q.swj));
-      sv[k] = q.s;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tsid[i] = none_of(__reduce_min_sync(kFull, rmin[i]));
-      tslot[i] = 0;
-      match[i] = false;
-      for (int k = 0; k < kNsc; ++k) {
-        const int id = static_cast<int>(smc[kRowIds * kLanes + kNwc + k]);
-        if (tsid[i] == id && id >= 0) {
-          tslot[i] = k;
-          match[i] = true;
-        }
+      base_can[k] = need[k] = false;
+      sv[k] = 0;
+      if (cf[k] & 1u) {
+        const Cls q = classify(p, ray_at<kPerRay>(rp, s, idx(k)), ct[k], true);
+        need[k] = !q.gj && q.wslot >= 0 && !q.swj;
+        if (need[k] && q.sslot >= 0) rmin = min(rmin, q.s);
+        base_can[k] = q.gj || (q.wslot >= 0 && q.swj);
+        sv[k] = q.s;
       }
     }
+    tsid = none_of(__reduce_min_sync(kFull, rmin));
+    const int sl = last_slot(smc + kRowIds * kLanes + kNwc, kNsc, tsid);
+    tslot = max(sl, 0);
+    match = sl >= 0;
     bool can = false;
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) can |= base_can[k] || (need[k] && sv[k] == tsid[k >> 2]);
-    return __syncthreads_or(can) != 0;
+    for (int k = 0; k < kRays; ++k) can = can || base_can[k] || (need[k] && sv[k] == tsid);
+    return cluster_or(cl, orf, rank, parity, can);
   };
 
   bool go = boundary();
   for (int sr = 0; sr < srd && go; ++sr) {
+#pragma unroll
     for (int k = 0; k < kRays; ++k) {
-      const size_t o = off(k);
-      const int i = k >> 2;
-      const Ray3 r = ray(k);
-      Carry c = load_carry(ts, fl, wa, we, o);
+      const Ray3 r = ray_at<kPerRay>(rp, s, idx(k));
+      Carry c = unpack(ct[k], cw[k], ce[k], cf[k]);
       for (int j = 0; c.act && j < sub_steps; ++j)
-        if (!step3(p, r, c, tsid[i], tslot[i], match[i], cap)) break;
-      if (c.hit && c.vox == 0) c.vox = decode3(p, r, c.t, tslot[i], match[i]);
+        if (!step3(p, r, c, tsid, tslot, match, cap)) break;
+      if (c.hit && c.vox == 0) c.vox = decode3(p, r, c.t, tslot, match);
       c.t = fminf(c.t, r.t_exit);
       c.act = c.act && c.stp < cap;
-      store_carry(ts, fl, wa, we, o, c);
+      ct[k] = c.t;
+      cw[k] = c.water;
+      ce[k] = c.wenter;
+      cf[k] = pack(c);
     }
-    go = boundary();
+    // the boundary after the last sub-round would pick rows nothing reads
+    go = sr + 1 < srd && boundary();
   }
 
   // wants, then the flags word (wavefront3.py:855-882, :1022-1041)
-  int wmin[2] = {kBigi, kBigi};
-  int dmin[2][3] = {{kBigi, kBigi, kBigi}, {kBigi, kBigi, kBigi}};
+  int wmin = kBigi;
+  int dmin[3] = {kBigi, kBigi, kBigi};
+#pragma unroll
   for (int k = 0; k < kRays; ++k) {
     const size_t o = off(k);
-    const int i = k >> 2;
-    const Ray3 r = ray(k);
-    const Carry c = load_carry(ts, fl, wa, we, o);
-    int wwid, ch[4];
-    walk3(p, r, c.t, c.act, lookahead, wwid, ch);
+    const Ray3 r = ray_at<kPerRay>(rp, s, idx(k));
+    const Carry c = unpack(ct[k], cw[k], ce[k], cf[k]);
+    int wwid = -1, ch[4] = {-1, -1, -1, -1};
+    if (c.act) walk3(p, r, c.t, true, lookahead, wwid, ch);
     const int g = __reduce_min_sync(kFull, or_none(ch[0]));
-    if (lane == 0) want[static_cast<size_t>(tile_of(k)) * 8 + (k & 3)] = none_of(g);
-    wmin[i] = min(wmin[i], or_none(wwid));
-    for (int d = 0; d < 3; ++d) dmin[i][d] = min(dmin[i][d], or_none(ch[d + 1]));
+    if (lane == 0) want[static_cast<size_t>(tile) * 8 + k] = none_of(g);
+    wmin = min(wmin, or_none(wwid));
+    for (int d = 0; d < 3; ++d) dmin[d] = min(dmin[d], or_none(ch[d + 1]));
     const int sgn = (r.sx ? 1 : 0) | (r.sy ? 2 : 0) | (r.sz ? 4 : 0);
+    ts[o] = c.t;
+    wa[o] = c.water;
+    we[o] = c.wenter;
     fl[o] = (c.act ? 1 : 0) | (c.hit ? 2 : 0) | (c.axm << 2) | (min(c.stp, 0xFFF) << 5) |
             (c.vox << 17) | (sgn << 25);
   }
-  for (int i = 0; i < 2; ++i) {
-    const int wm = __reduce_min_sync(kFull, wmin[i]);
-    int dm[3];
-    for (int d = 0; d < 3; ++d) dm[d] = __reduce_min_sync(kFull, dmin[i][d]);
-    if (lane == 0) {
-      int* wr = want + static_cast<size_t>(row0 + i) * 8;
-      wr[4] = none_of(wm);
-      for (int d = 0; d < 3; ++d) wr[5 + d] = none_of(dm[d]);
-    }
+  const int wm = __reduce_min_sync(kFull, wmin);
+  int dm[3];
+  for (int d = 0; d < 3; ++d) dm[d] = __reduce_min_sync(kFull, dmin[d]);
+  if (lane == 0) {
+    int* wr = want + static_cast<size_t>(tile) * 8;
+    wr[4] = none_of(wm);
+    for (int d = 0; d < 3; ++d) wr[5 + d] = none_of(dm[d]);
   }
 }
 
 }  // namespace
 
-// One launch of the v3 march on `stream`: T/64 blocks of 1,024 threads.
-// scal f32[27]; mc i32[T/64,101,128]; rays f32[6,T,128] or null (camera
-// rays); tmap i32[T,8] or null; the state planes in (ts, fl, wa, we) and
-// out, each [T,128]; want i32[T,8]. Returns the launch's CUDA error
+// Dynamic shared memory of a block: the cache block, the scalar row, the
+// cluster's OR words and the ray planes (10 with per-ray bundles, else 7).
+inline int march3_smem_bytes(bool per_ray) {
+  return static_cast<int>(sizeof(unsigned)) *
+         (kMcWords + kScalPad + 2 * kCluster + (per_ray ? 10 : 7) * kRaysB);
+}
+
+#ifndef MARCH3_HOST_TEST
+// One launch of the v3 march on `stream`: T/64 clusters of two 1,024-thread
+// blocks. scal f32[27]; mc i32[T/64,101,128]; rays f32[6,T,128] or null
+// (camera rays); tmap i32[T,8] or null; the state planes in (ts, fl, wa,
+// we) and out, each [T,128]; want i32[T,8]. Returns the launch's CUDA error
 // (0 = cudaSuccess); the caller raises on anything else.
 extern "C" int march3_launch(const float* scal, const int* mc, const float* rays,
                              const int* tmap, const float* ts_in, const int* fl_in,
                              const float* wa_in, const float* we_in, float* ts, int* fl,
                              float* wa, float* we, int* want, int T, int nw, int ns, int nsx,
                              int sub_rounds, int sub_steps, int lookahead, cudaStream_t stream) {
-  const int smem = kMcWords * static_cast<int>(sizeof(unsigned));
+  const int smem = march3_smem_bytes(rays != nullptr);
   auto kernel = rays ? march3_kernel<true> : march3_kernel<false>;
-  // the cache block is above the 48 KB default: opt in once per
-  // instantiation (never again, so a CUDA-graph capture sees launches only)
+  // above the 48 KB default: opt in once per instantiation (never again,
+  // so a CUDA-graph capture sees launches only)
   static bool opted[2] = {false, false};
   if (!opted[rays ? 1 : 0]) {
     const cudaError_t e =
@@ -499,8 +600,10 @@ extern "C" int march3_launch(const float* scal, const int* mc, const float* rays
     if (e != cudaSuccess) return static_cast<int>(e);
     opted[rays ? 1 : 0] = true;
   }
-  kernel<<<T / kBlk, kThreads3, smem, stream>>>(scal, mc, rays, tmap, ts_in, fl_in, wa_in, we_in,
-                                                ts, fl, wa, we, want, T, nw, ns, nsx, sub_rounds,
-                                                sub_steps, lookahead);
+  kernel<<<(T / kBlk) * kCluster, kThreads3, smem, stream>>>(scal, mc, rays, tmap, ts_in, fl_in,
+                                                             wa_in, we_in, ts, fl, wa, we, want,
+                                                             T, nw, ns, nsx, sub_rounds,
+                                                             sub_steps, lookahead);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

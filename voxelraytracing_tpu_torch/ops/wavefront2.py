@@ -310,9 +310,10 @@ def march2(scal, dx, dy, dz, gj, gl, wid, bwc, lwc, bid, cnt, t, active, hit,
     """One round of the v2 march -> the ten state planes, ``want_win``,
     ``want_br`` (see :func:`march2_ref`, same arguments).
 
-    On CUDA tensors: the hand-written kernel ``csrc/march2.cu`` (built at
-    first use), ``1 + sub_rounds`` launches (``march2.cuda_launches``
-    counts them; ``march2.launches`` counts calls); on CPU tensors: the
+    On CUDA tensors: one launch of the hand-written kernel
+    ``csrc/march2.cu`` (built at first use), a cluster of eight
+    1,024-thread blocks a 256-tile program (``march2.cuda_launches``
+    counts launches, ``march2.launches`` calls); on CPU tensors: the
     plain version :func:`march2_ref`. Any other device raises."""
     from .wavefront4 import _check, _device_of, _run
 
@@ -345,15 +346,14 @@ def march2(scal, dx, dy, dz, gj, gl, wid, bwc, lwc, bid, cnt, t, active, hit,
     out = [torch.empty_like(x) for x in state]
     want_win = torch.empty((T, 1), dtype=i32, device=dev)
     want_br = torch.empty((T, N_WANTB), dtype=i32, device=dev)
-    go = torch.zeros((sub_rounds + 1, n_prog), dtype=i32, device=dev)
     _run(dev, "march2", _build.load("march2").march2_launch,
          *(x.data_ptr() for x in (scal, dx, dy, dz, gj, gl, wid, bwc, lwc,
                                   bid, cnt)),
          *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
-         want_win.data_ptr(), want_br.data_ptr(), go.data_ptr(),
+         want_win.data_ptr(), want_br.data_ptr(),
          T, int(nb), int(bg_side), int(sub_rounds))
     march2.launches += 1
-    march2.cuda_launches += 1 + int(sub_rounds)
+    march2.cuda_launches += 1
     return tuple(out) + (want_win, want_br)
 
 

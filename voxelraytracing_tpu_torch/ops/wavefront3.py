@@ -889,8 +889,9 @@ def march3(scal, mc, ts, fl, wa, we, rays=None, tile_map=None, *, nw, ns,
     """One launch of the v3 march -> ``(ts, fl, wa, we), want``.
 
     On CUDA tensors: one launch of the hand-written kernel
-    ``csrc/march3.cu`` (built at first use), one 1,024-thread block per
-    64-tile program; on CPU tensors: the plain version :func:`march3_ref`.
+    ``csrc/march3.cu`` (built at first use), a cluster of two 1,024-thread
+    blocks a 64-tile program; on CPU tensors: the plain version
+    :func:`march3_ref`.
     Any other device raises. Same arguments as :func:`march3_ref`."""
     from .wavefront4 import _check, _device_of, _run
 
