@@ -71,7 +71,10 @@ nvcc per source, all at once):
  15. timing: both routes' frames (static, 12-camera orbit), ``matfetch4``
      and ``pt4`` alone and the bounce leg's ``march_planes4`` (wrapper
      calls and CUDA-graph device time), the plain versions, and the steps
-     the bounds need;
+     the bounds need; the SIMT efficiency of the static frame's camera
+     and bounce legs (warps of 16x2 and 8x4 pixels, and the bounce leg's
+     live paths compacted into whole warps a tile, as ``pt4`` marches
+     them);
  16. the strip world (config4ck's layout, benchmarks/run.py:586-633: 32 x
      3 x 8 chunks of demo terrain) in a 40-chunk window (20 windows a
      side, super-cells of 2): dense and sparse builders with the same 21
@@ -178,7 +181,7 @@ WINDOWS = 5
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, FP32 op/s
 HBM_BPS = 3.35e12
 FP32_OPS = 67e12
-# FP32 operations of one march step (march4_common.cuh march_leg: 6 for
+# FP32 operations of one march step (march4_common.cuh march_step: 6 for
 # the position, 3 floors, 7 per axis for the DDA exit, 2 mins, 2 for the t
 # update, 2 for the water interval, 1 cell inverse); integer work and
 # loads are not counted, so the bound stays a least time
@@ -756,8 +759,9 @@ def bound(bytes_moved, ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-# warp footprints (pixels wide x high) whose SIMT efficiency phases 10, 11
-# and 18 print: 16x2 (a warp of a 16x8 tile) and 8x4 (march4.cu's)
+# warp footprints (pixels wide x high) whose SIMT efficiency phases 10, 11,
+# 15 and 18 print: 16x2 (a warp of a 16x8 tile, row-major) and 8x4 (the
+# v4 kernels')
 FOOTPRINTS = ((16, 2), (8, 4))
 
 
@@ -783,6 +787,27 @@ def say_simt(phase, what, steps):
         f"warps; step-weighted) " + ", ".join(
             f"{fw}x{fh} {m:.4f}; {wt:.4f}" for (fw, fh), (m, wt)
             in eff.items()))
+
+
+def simt_compacted(steps, live):
+    """SIMT efficiency of a bounce leg as ``pt4`` marches it: in each
+    16x8 tile the live rays, in the order of the tile's four 8x4 groups
+    (2x2, each row-major), packed into as few warps as they need; mean
+    over warps that step, and step-weighted, as :func:`simt_efficiency`."""
+    h, w = steps.shape
+    h8, w16 = h - h % 8, w - w % 16
+
+    def tiles(x):
+        return x[:h8, :w16].reshape(h8 // 8, 2, 4, w16 // 16, 2, 8).permute(
+            0, 3, 1, 4, 2, 5).reshape(-1, 128)
+
+    s, lv = tiles(steps.double()), tiles(live)
+    order = torch.sort((~lv).to(torch.int8), dim=1, stable=True).indices
+    s = (torch.gather(s, 1, order) * torch.gather(lv, 1, order)).reshape(-1, 32)
+    mx, tot = s.max(1).values, s.sum(1)
+    m = mx > 0
+    return (float((tot[m] / (32 * mx[m])).mean()),
+            float(tot.sum() / (32 * mx.sum())))
 
 
 def shadow_bounds(sh):
@@ -1096,6 +1121,18 @@ def time_pt(rg, mats, static, orbit, phase):
     bts, bfl = t4.march_planes4(args[0], args[1], args[3], args[4], *bundle,
                                 height=h, width=w)[:2]
     out["steps_bounce"] = int(((bfl >> 5) & 0xFFF).sum())
+    say_simt(phase, f"{w}x{h} static config3 frame, camera leg",
+             (fl >> 5) & 0xFFF)
+    say_simt(phase, f"{w}x{h} static config3 frame, bounce leg (a lane "
+             f"for every pixel)", (bfl >> 5) & 0xFFF)
+    out["simt_bounce_compacted"] = simt_compacted((bfl >> 5) & 0xFFF,
+                                                  bundle[2])
+    say(phase, f"{w}x{h} static config3 frame, bounce leg with each "
+        f"tile's live paths compacted into whole warps (pt4's bounce legs):"
+        f" SIMT efficiency (mean over warps; step-weighted) "
+        f"{out['simt_bounce_compacted'][0]:.4f}; "
+        f"{out['simt_bounce_compacted'][1]:.4f}; live paths "
+        f"{int(bundle[2].sum())} of {h * w}")
     out["rows_bounce"] = int(hit_rows(
         args[3], bundle[0], bundle[1], bts, ((bfl >> 1) & 1) != 0,
         t4._world_dims(args[3], args[4])[1]).numel())

@@ -693,6 +693,41 @@ def test_march2_cluster_go_and_early_stop(v1_world):
     assert int(lvl[256 + STRANDED[0], STRANDED[1]]) == 1
 
 
+def _on(dev, args):
+    """``args`` with every tensor copied to ``dev``."""
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def test_shared_memory_opt_in_on_a_second_card(card_world, v1_world):
+    """``march3`` (both instantiations) and ``march2`` launch on cuda:1
+    after launches on cuda:0: each opts in to its shared memory on every
+    device (csrc/smem_optin.cuh), not once a process. Held word for word
+    against the plain versions, outputs on cuda:1."""
+    from torch_v2_state import go_probe
+
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rg, _, mats = card_world
+    cam = CamData.create(*CAMS[0], 70.0, (200, 120))
+    with _Both(t3, "march3") as both:
+        t3.render_frame3(rg, cam, mats.color, sun_pos=SUN, shadows=True,
+                         rounds=2, step_cap=500)
+    firsts = {a[6] is not None: (a, kw) for a, kw in reversed(both.calls)}
+    assert sorted(firsts) == [False, True]
+    args2, kw2 = go_probe(v1_world, "cuda")
+    _held(t2.march2, t2.march2_ref, args2, kw2)
+    one = torch.device("cuda", 1)
+    for kernel, ref, (args, kw) in (
+            [(t3.march3, t3.march3_ref, firsts[b]) for b in (False, True)]
+            + [(t2.march2, t2.march2_ref, (args2, kw2))]):
+        out = _held(kernel, ref, _on(one, args), kw)
+        assert all(x.device == one for x in _flat(out))
+
+
 def test_march2_rejects_bad_inputs(v1_world):
     from torch_v2_state import go_probe
 

@@ -31,6 +31,7 @@ from voxelraytracing_tpu_torch.ops.wavefront import build_render_grid_host
 from voxelraytracing_tpu_torch.world import demo
 
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
+from torch_smem_optin import check_once_per_device
 from torch_v2_state import STRANDED, go_probe2
 
 TESTS = Path(__file__).resolve().parent
@@ -169,3 +170,10 @@ def test_go_is_program_wide(host_kernel, world, tmp_path):
     lvl = want[3]
     assert int(lvl[STRANDED]) == 0 and int(lvl[256 + STRANDED[0],
                                                STRANDED[1]]) == 1
+
+
+def test_smem_optin_once_per_device(host_kernel):
+    """``march2_optin`` (csrc/smem_optin.cuh): the kernel opts in to its
+    shared memory once on each device, none on a repeat launch, and never
+    inside a CUDA-graph capture."""
+    check_once_per_device(host_kernel, (0,))

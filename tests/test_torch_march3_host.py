@@ -30,6 +30,7 @@ from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.world import demo
 
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
+from torch_smem_optin import check_once_per_device
 
 TESTS = Path(__file__).resolve().parent
 CSRC = TESTS.parent / "voxelraytracing_tpu_torch" / "csrc"
@@ -203,3 +204,10 @@ def test_lookahead_two(host_kernel, world, tmp_path):
     assert any((w[:, 5:] >= 0).any() for _, _, (_, w) in calls)
     bad, _ = _held(host_kernel, tmp_path, calls)
     assert bad == 0
+
+
+def test_smem_optin_once_per_device(host_kernel):
+    """``march3_optin`` (csrc/smem_optin.cuh): both instantiations (camera rays, bundles) opt in to their
+    shared memory once on each device, none on a repeat launch, and never
+    inside a CUDA-graph capture."""
+    check_once_per_device(host_kernel, (0, 1))

@@ -1,10 +1,15 @@
 // A host stand-in for the CUDA runtime that lets a kernel of the port's
 // csrc/ run on the CPU (tests/test_torch_march4_host.py,
+// tests/test_torch_planes4_host.py, tests/test_torch_pt4_host.py,
 // tests/test_torch_probes_host.py, tests/test_torch_march3_host.py,
 // tests/test_torch_march2_host.py): a block's threads run as std::threads;
 // __syncthreads (and __syncthreads_or) is a barrier among them, __syncwarp
-// and the warp intrinsics one among a warp's; __ldg is a plain load.
-// host_launch runs one block at a time, and __shared__ arrays are static.
+// and the warp intrinsics (ballot, shuffles, reductions) one among a
+// warp's; __ldg is a plain load, atomicAdd a locked add. host_launch runs
+// one block at a time on one pool of threads, and aborts a launch that
+// stops making progress (where the card would hang); __shared__ arrays
+// are static. The runtime calls of csrc/smem_optin.cuh record what they
+// set.
 // host_launch_cluster runs the blocks of a thread-block cluster together,
 // each with its own dynamic shared memory (DYN_SMEM), and gives them
 // cooperative_groups' cluster: its rank, its barrier and the mapping of a
@@ -15,11 +20,16 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
+#include <condition_variable>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -135,6 +145,31 @@ inline int __any_sync(unsigned, int p) {
   return static_cast<int>(r);
 }
 
+// Bit k set where lane k's p is nonzero.
+inline unsigned __ballot_sync(unsigned, int p) {
+  const unsigned* s = host_exchange(p != 0);
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= s[i] << i;
+  host_exchange_done();
+  return r;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+// The word of lane `src`.
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) == 4);
+  unsigned u;
+  std::memcpy(&u, &v, 4);
+  const unsigned* s = host_exchange(u);
+  u = s[src & 31];
+  host_exchange_done();
+  T r;
+  std::memcpy(&r, &u, 4);
+  return r;
+}
+
 // The word of lane (lane ^ m).
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int m) {
@@ -149,6 +184,8 @@ inline T __shfl_xor_sync(unsigned, T v, int m) {
   return r;
 }
 
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+
 inline int atomicCAS(int* p, int expected, int desired) {
   __atomic_compare_exchange_n(p, &expected, desired, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST);
   return expected;
@@ -162,6 +199,37 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, std::size_t size
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(std::size_t) {}
+
+// The runtime calls of csrc/smem_optin.cuh: a current device the driver
+// sets (host_device), whether every stream is capturing (host_capturing),
+// and cudaFuncSetAttribute, which records each call for the driver to
+// show. Error codes and enumerators carry the CUDA runtime's values.
+using cudaStream_t = void*;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidDevice = 101,
+                   cudaErrorStreamCaptureUnsupported = 900 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0,
+                               cudaStreamCaptureStatusActive = 1 };
+struct HostFuncAttr {
+  int device;
+  const void* kernel;
+  int attr, value;
+};
+inline int host_device = 0;
+inline bool host_capturing = false;
+inline std::vector<HostFuncAttr> host_func_attrs;
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = host_device;
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamIsCapturing(cudaStream_t, cudaStreamCaptureStatus* status) {
+  *status = host_capturing ? cudaStreamCaptureStatusActive : cudaStreamCaptureStatusNone;
+  return cudaSuccess;
+}
+inline cudaError_t cudaFuncSetAttribute(const void* kernel, cudaFuncAttribute attr, int value) {
+  host_func_attrs.push_back({host_device, kernel, static_cast<int>(attr), value});
+  return cudaSuccess;
+}
 
 template <class T>
 inline T __ldg(const T* p) {
@@ -221,22 +289,51 @@ void host_launch_cluster(unsigned grid_x, unsigned cluster, unsigned threads,
 }
 
 // Run kernel(args...) as every thread of a grid_x x grid_y grid of
-// `threads`-thread blocks, one block after another.
+// `threads`-thread blocks, one block after another, on one pool of
+// `threads` std::threads (thread t of every block). A launch in which no
+// thread finishes a block for `timeout_s` seconds waits on a barrier or
+// a warp collective that some thread never reaches (one that returned
+// early or took another branch), where the card would hang: the process
+// aborts with a message.
 template <class K, class... A>
 void host_launch(unsigned grid_x, unsigned grid_y, unsigned threads, K kernel, A... args) {
+  constexpr int timeout_s = 60;
   gridDim = {grid_x, grid_y, 1};
   blockDim = {threads, 1, 1};
-  for (unsigned by = 0; by < grid_y; ++by)
-    for (unsigned bx = 0; bx < grid_x; ++bx) {
-      HostBlock blk(threads, 0);
-      std::vector<std::thread> pool;
-      for (unsigned t = 0; t < threads; ++t)
-        pool.emplace_back([=, &blk] {
-          threadIdx = {t, 0, 0};
-          blockIdx = {bx, by, 0};
-          host_block = &blk;
-          kernel(args...);
-        });
-      for (auto& th : pool) th.join();
+  const unsigned nblocks = grid_x * grid_y;
+  std::deque<HostBlock> blocks;
+  for (unsigned b = 0; b < nblocks; ++b) blocks.emplace_back(threads, 0);
+  std::barrier<> next(threads);  // every thread is done with a block before the next
+  std::mutex mu;
+  std::condition_variable cv;
+  unsigned long done = 0;
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = {t, 0, 0};
+      for (unsigned b = 0; b < nblocks; ++b) {
+        blockIdx = {b % grid_x, b / grid_x, 0};
+        host_block = &blocks[b];
+        kernel(args...);
+        {
+          std::lock_guard<std::mutex> lock(mu);
+          ++done;
+        }
+        cv.notify_one();
+        next.arrive_and_wait();
+      }
+    });
+  {
+    std::unique_lock<std::mutex> lock(mu);
+    for (unsigned long seen = 0; seen < static_cast<unsigned long>(nblocks) * threads;
+         seen = done) {
+      if (!cv.wait_for(lock, std::chrono::seconds(timeout_s), [&] { return done != seen; })) {
+        std::fprintf(stderr, "host_launch: no thread finished a block for %d s: a barrier or "
+                     "warp collective waits on a thread that never reaches it, where the "
+                     "card would hang\n", timeout_s);
+        std::abort();
+      }
     }
+  }
+  for (auto& th : pool) th.join();
 }

@@ -3,12 +3,14 @@
 // tests/torch_cuda_host.h, each program's cluster of eight 1,024-thread
 // blocks together.
 //   torch_march2_host IN OUT
+//   torch_march2_host optin   (csrc/smem_optin.cuh through march2_optin)
 // IN: int32 T nb bg_side sub_rounds, then scal f32[8], dx dy dz f32[T,128],
 // gj gl i32[128], wid i32[T/256,8], bwc lwc i32[T/256,8,128], bid
 // i32[T/256,64], cnt i32[T/256,8,128], the ten state planes [T,128]
 // (t active hit level cur_brick axmask vox water wenter steps).
 // OUT: the ten state planes, want_win i32[T], want_br i32[T,16].
 #include <cstdio>
+#include <string>
 #include <vector>
 
 #include "torch_cuda_host.h"
@@ -22,7 +24,30 @@ static std::vector<T> read(FILE* f, size_t n) {
   return v;
 }
 
+// The opt-in on devices 0 and 1, each launch made twice, then under
+// capture (device 0, opted in; device 2, not), then device 2 outside the
+// capture. Prints each call's error code ("rc dev 0 code"), the block's
+// shared bytes ("bytes 0 n") and each recorded cudaFuncSetAttribute
+// ("set dev 0 attr value").
+static int optin_report() {
+  auto call = [](int dev, bool capturing) {
+    host_device = dev;
+    host_capturing = capturing;
+    printf("rc %d 0 %d\n", dev, static_cast<int>(march2_optin(nullptr)));
+  };
+  for (int dev = 0; dev < 2; ++dev)
+    for (int rep = 0; rep < 2; ++rep) call(dev, false);
+  call(0, true);
+  call(2, true);
+  call(2, false);
+  printf("bytes 0 %d\n", kMarch2Smem);
+  for (const HostFuncAttr& a : host_func_attrs)
+    printf("set %d 0 %d %d\n", a.device, a.attr, a.value);
+  return 0;
+}
+
 int main(int argc, char** argv) {
+  if (argc == 2 && std::string(argv[1]) == "optin") return optin_report();
   if (argc != 3) return 2;
   FILE* f = fopen(argv[1], "rb");
   if (!f) return 2;

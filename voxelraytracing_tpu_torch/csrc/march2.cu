@@ -49,6 +49,7 @@
 // o + d*t land on voxel faces, where one ulp flips floor().
 
 #include "march4_common.cuh"
+#include "smem_optin.cuh"
 
 #include <cooperative_groups.h>
 
@@ -547,6 +548,13 @@ march2_kernel(const float* __restrict__ scal, const float* __restrict__ dx,
 
 constexpr int kMarch2Smem = static_cast<int>(sizeof(Smem2));
 
+// Above the 48 KB default: the kernel opts in once on each device
+// (smem_optin.cuh).
+inline cudaError_t march2_optin(cudaStream_t stream) {
+  static SmemOptIn optin;
+  return optin(reinterpret_cast<const void*>(march2_kernel), kMarch2Smem, stream);
+}
+
 #ifndef MARCH2_HOST_TEST
 // One round of the v2 march: one launch on `stream` of T/256 clusters of
 // eight 1,024-thread blocks. Returns a cudaError_t (0 = cudaSuccess).
@@ -560,15 +568,8 @@ extern "C" int march2_launch(const float* scal, const float* dx, const float* dy
                              int T, int nb, int bg_side, int sub_rounds, cudaStream_t stream) {
   const Planes in{t_in, act_in, hit_in, lvl_in, cb_in, ax_in, vox_in, wat_in, wen_in, stp_in};
   const Planes out{t, act, hit, lvl, cb, ax, vox, wat, wen, stp};
-  // above the 48 KB default: opt in once (never again, so a CUDA-graph
-  // capture sees launches only)
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        march2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMarch2Smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted = true;
-  }
+  const cudaError_t e = march2_optin(stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   march2_kernel<<<(T / kBlk2) * kCluster2, kThreads2, kMarch2Smem, stream>>>(
       scal, dx, dy, dz, gj, gl, wid, bwc, lwc, bid, cnt, in, out, want_win, want_br, nb,
       bg_side, sub_rounds);

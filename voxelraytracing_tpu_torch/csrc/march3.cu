@@ -50,6 +50,7 @@
 // the plain version, so positions on voxel faces floor alike.
 
 #include "march4_common.cuh"
+#include "smem_optin.cuh"
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -578,6 +579,15 @@ inline int march3_smem_bytes(bool per_ray) {
          (kMcWords + kScalPad + 2 * kCluster + (per_ray ? 10 : 7) * kRaysB);
 }
 
+// Above the 48 KB default: each instantiation opts in once on each device
+// (smem_optin.cuh).
+inline cudaError_t march3_optin(bool per_ray, cudaStream_t stream) {
+  static SmemOptIn optin[2];
+  const void* kernel = per_ray ? reinterpret_cast<const void*>(march3_kernel<true>)
+                               : reinterpret_cast<const void*>(march3_kernel<false>);
+  return optin[per_ray ? 1 : 0](kernel, march3_smem_bytes(per_ray), stream);
+}
+
 #ifndef MARCH3_HOST_TEST
 // One launch of the v3 march on `stream`: T/64 clusters of two 1,024-thread
 // blocks. scal f32[27]; mc i32[T/64,101,128]; rays f32[6,T,128] or null
@@ -589,21 +599,12 @@ extern "C" int march3_launch(const float* scal, const int* mc, const float* rays
                              const float* wa_in, const float* we_in, float* ts, int* fl,
                              float* wa, float* we, int* want, int T, int nw, int ns, int nsx,
                              int sub_rounds, int sub_steps, int lookahead, cudaStream_t stream) {
-  const int smem = march3_smem_bytes(rays != nullptr);
+  const cudaError_t e = march3_optin(rays != nullptr, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   auto kernel = rays ? march3_kernel<true> : march3_kernel<false>;
-  // above the 48 KB default: opt in once per instantiation (never again,
-  // so a CUDA-graph capture sees launches only)
-  static bool opted[2] = {false, false};
-  if (!opted[rays ? 1 : 0]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted[rays ? 1 : 0] = true;
-  }
-  kernel<<<(T / kBlk) * kCluster, kThreads3, smem, stream>>>(scal, mc, rays, tmap, ts_in, fl_in,
-                                                             wa_in, we_in, ts, fl, wa, we, want,
-                                                             T, nw, ns, nsx, sub_rounds,
-                                                             sub_steps, lookahead);
+  kernel<<<(T / kBlk) * kCluster, kThreads3, march3_smem_bytes(rays != nullptr), stream>>>(
+      scal, mc, rays, tmap, ts_in, fl_in, wa_in, we_in, ts, fl, wa, we, want, T, nw, ns, nsx,
+      sub_rounds, sub_steps, lookahead);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -129,14 +129,25 @@ __device__ __forceinline__ void camera_dir(const float* s, int px, int py, float
 }
 
 // The bit-plane world: the pair plane in shared memory, the tables in
-// global memory (read-only path).
+// global memory (read-only path); its edge v in voxels (a whole number)
+// and its window (super-cell) edge with that edge's exact inverse.
 struct World {
   const unsigned* gpair;
   const int* sw_cont;
   const int* wmeta_pad;
   int nw, ns, gs, nwg;
   float v;
+  unsigned vcells;
+  float wcell, wicell;
 };
+
+__device__ __forceinline__ World make_world(const unsigned* gpair, const int* sw_cont,
+                                            const int* wmeta_pad, int nw, int ns, int gs,
+                                            float v) {
+  const float wcell = static_cast<float>(64 << gs);
+  return World{gpair, sw_cont, wmeta_pad, nw, ns, gs, (nw + (1 << gs) - 1) >> gs, v,
+               static_cast<unsigned>(v), wcell, 1.0f / wcell};  // a power of two: exact
+}
 
 // A ray and its per-ray DDA constants (wavefront4.py _make_leg).
 struct Ray {
@@ -210,12 +221,101 @@ __device__ __forceinline__ const int* content_row(const World& w, int wi, int s_
   return w.sw_cont + static_cast<size_t>(sid) * (kSubRows * kRow);
 }
 
-// One march leg (wavefront4.py classify + step, for one ray) from
-// t = EPS_T: steps classified from position alone — global window
+// One step of a march leg (wavefront4.py classify + step, for one ray):
+// the step is classified from position alone — global window
 // (super-cell) jump, subwindow jump from the window meta, brick skip from
-// the subwindow meta, else a voxel bit test — each advancing by the DDA
-// exit of its cell plus EPS_T, until hit, exit or stp >= step_cap. A
-// sparse subwindow without a content row marches as an empty jump.
+// the subwindow meta, else a voxel bit test — and advances by the DDA exit
+// of its cell plus EPS_T. A sparse subwindow without a content row
+// marches as an empty jump. Every float operation is the plain version's,
+// in its order, with two exact shortcuts: the cell inverse is the power
+// of two that 1.0f / cell rounds to, and the world test is made on the
+// voxel coordinates the step needs anyway: for a world edge v of whole
+// voxels and a position x that is not NaN, 0 <= x < v is
+// 0 <= floor(x) < v (an infinite x converts to INT_MIN or INT_MAX and
+// fails the unsigned compare; march_leg keeps NaN positions out, since a
+// NaN converts to 0 on the card, where inside_world is false). Returns
+// false once the leg has ended (hit, slab exit, world exit or step cap),
+// with c.t clamped to the slab exit. `dtx, dty, dtz` carry the last
+// step's exits; march_leg derives the exit-axis mask from them.
+template <bool kSparse>
+__device__ __forceinline__ bool march_step(const World& w, const Ray& r, Leg& c, float& dtx,
+                                           float& dty, float& dtz, int step_cap) {
+  const float pxf = r.ox + r.dx * c.t;
+  const float pyf = r.oy + r.dy * c.t;
+  const float pzf = r.oz + r.dz * c.t;
+  const int vx = static_cast<int>(floorf(pxf));
+  const int vy = static_cast<int>(floorf(pyf));
+  const int vz = static_cast<int>(floorf(pzf));
+  if (!(c.t < r.t_exit) || c.stp >= step_cap || static_cast<unsigned>(vx) >= w.vcells ||
+      static_cast<unsigned>(vy) >= w.vcells || static_cast<unsigned>(vz) >= w.vcells) {
+    c.t = fminf(c.t, r.t_exit);
+    return false;
+  }
+  const int gsh = 6 + w.gs;
+  const int wg = (vx >> gsh) + (vy >> gsh) * w.nwg + (vz >> gsh) * w.nwg * w.nwg;
+  const unsigned g = (w.gpair[wg >> 4] >> ((wg & 15) * 2)) & 3u;
+  float cell, icell;
+  bool liquid, hit_now = false;
+  if (g & 1u) {                         // window (super-cell) jump
+    cell = w.wcell;
+    icell = w.wicell;
+    liquid = (g & 2u) != 0;
+  } else {
+    const int wi = (vx >> 6) + (vy >> 6) * w.nw + (vz >> 6) * w.nw * w.nw;
+    const int s_loc = ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16;
+    const unsigned sw =
+        (ld(w.wmeta_pad + static_cast<size_t>(wi) * kRow + (s_loc >> 4)) >> ((s_loc & 15) * 2)) &
+        3u;
+    const int* row = (sw & 1u) ? nullptr : content_row<kSparse>(w, wi, s_loc, vx, vy, vz);
+    if (!row) {                         // subwindow jump, or no sparse row: empty
+      cell = 16.0f;
+      icell = 0.0625f;
+      liquid = (sw & 2u) != 0;
+    } else {
+      const int b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16;
+      const unsigned br = (ld(row + 6 * kRow + (b_loc >> 4)) >> ((b_loc & 15) * 2)) & 3u;
+      if (br & 1u) {                    // brick skip
+        cell = 4.0f;
+        icell = 0.25f;
+        liquid = (br & 2u) != 0;
+      } else {                          // voxel test
+        const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
+        hit_now = ((ld(row + (l >> 5)) >> (l & 31)) & 1u) != 0;
+        liquid = ((ld(row + kRow + (l >> 5)) >> (l & 31)) & 1u) != 0;
+        cell = 1.0f;
+        icell = 1.0f;
+      }
+    }
+  }
+  // water interval: close it on leaving liquid, open it on marching in
+  if (c.wenter >= 0.0f && !liquid) {
+    c.water = c.water + (c.t - c.wenter);
+    c.wenter = -1.0f;
+  }
+  c.stp += 1;
+  if (hit_now) {
+    c.hit = true;
+    c.t = fminf(c.t, r.t_exit);
+    return false;
+  }
+  if (liquid && c.wenter < 0.0f) c.wenter = c.t;
+  dtx = axis_exit(pxf, r.gfx, r.isx, r.bgx, cell, icell);
+  dty = axis_exit(pyf, r.gfy, r.isy, r.bgy, cell, icell);
+  dtz = axis_exit(pzf, r.gfz, r.isz, r.bgz, cell, icell);
+  c.t = c.t + fminf(dtx, fminf(dty, dtz)) + kEpsT;
+  return true;
+}
+
+// One march leg from t = EPS_T: steps (march_step) until hit, exit or
+// stp >= step_cap; the exit-axis mask is that of the last step taken (no
+// axis before the first: the exits start NaN). Every kernel of the v4
+// family marches through this loop, so the fused frame, the split frame
+// and the path tracer step alike. Every caller starts a leg from a finite
+// origin (camera rays, bundles and shadow rays strictly inside the world,
+// a bounce from its hit point), and a t that is not finite fails
+// t < t_exit before its position is used, so a position is NaN only if
+// the direction is: such a ray takes no step, as inside_world (false on
+// NaN) has it in the plain version.
 template <bool kSparse = false>
 __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool active,
                                          int step_cap) {
@@ -226,71 +326,15 @@ __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool acti
   c.stp = 0;
   c.axm = 0;
   c.hit = false;
-  const int gs = w.gs, nw = w.nw, nwg = w.nwg;
-  while (active) {
-    const float pxf = r.ox + r.dx * c.t;
-    const float pyf = r.oy + r.dy * c.t;
-    const float pzf = r.oz + r.dz * c.t;
-    if (!(c.t < r.t_exit) || c.stp >= step_cap || !inside_world(pxf, pyf, pzf, w.v)) break;
-    const int vx = static_cast<int>(floorf(pxf));
-    const int vy = static_cast<int>(floorf(pyf));
-    const int vz = static_cast<int>(floorf(pzf));
-    const int wg = (vx >> (6 + gs)) + (vy >> (6 + gs)) * nwg + (vz >> (6 + gs)) * nwg * nwg;
-    const unsigned g = (w.gpair[wg >> 4] >> ((wg & 15) * 2)) & 3u;
-    float cell;
-    bool liquid, hit_now = false;
-    if (g & 1u) {                       // window (super-cell) jump
-      cell = static_cast<float>(64 << gs);
-      liquid = (g & 2u) != 0;
-    } else {
-      const int wi = (vx >> 6) + (vy >> 6) * nw + (vz >> 6) * nw * nw;
-      const int s_loc = ((vx >> 4) & 3) + ((vy >> 4) & 3) * 4 + ((vz >> 4) & 3) * 16;
-      const unsigned sw =
-          (ld(w.wmeta_pad + static_cast<size_t>(wi) * kRow + (s_loc >> 4)) >> ((s_loc & 15) * 2)) &
-          3u;
-      if (sw & 1u) {                    // subwindow jump
-        cell = 16.0f;
-        liquid = (sw & 2u) != 0;
-      } else {
-        const int* row = content_row<kSparse>(w, wi, s_loc, vx, vy, vz);
-        if (kSparse && !row) {          // no sparse row: an empty subwindow
-          cell = 16.0f;
-          liquid = (sw & 2u) != 0;
-        } else {
-          const int b_loc = ((vx >> 2) & 3) + ((vy >> 2) & 3) * 4 + ((vz >> 2) & 3) * 16;
-          const unsigned br = (ld(row + 6 * kRow + (b_loc >> 4)) >> ((b_loc & 15) * 2)) & 3u;
-          if (br & 1u) {                // brick skip
-            cell = 4.0f;
-            liquid = (br & 2u) != 0;
-          } else {                      // voxel test
-            const int l = (vx & 15) + (vy & 15) * 16 + (vz & 15) * 256;
-            hit_now = ((ld(row + (l >> 5)) >> (l & 31)) & 1u) != 0;
-            liquid = ((ld(row + kRow + (l >> 5)) >> (l & 31)) & 1u) != 0;
-            cell = 1.0f;
-          }
-        }
-      }
+  float dtx = __int_as_float(0x7fffffff), dty = dtx, dtz = dtx;
+  if (active && r.dx == r.dx && r.dy == r.dy && r.dz == r.dz) {
+    while (march_step<kSparse>(w, r, c, dtx, dty, dtz, step_cap)) {
     }
-    // water interval: close it on leaving liquid, open it on marching in
-    if (c.wenter >= 0.0f && !liquid) {
-      c.water = c.water + (c.t - c.wenter);
-      c.wenter = -1.0f;
-    }
-    c.stp += 1;
-    if (hit_now) {
-      c.hit = true;
-      break;
-    }
-    if (liquid && c.wenter < 0.0f) c.wenter = c.t;
-    const float icell = 1.0f / cell;
-    const float dtx = axis_exit(pxf, r.gfx, r.isx, r.bgx, cell, icell);
-    const float dty = axis_exit(pyf, r.gfy, r.isy, r.bgy, cell, icell);
-    const float dtz = axis_exit(pzf, r.gfz, r.isz, r.bgz, cell, icell);
-    const float dt = fminf(dtx, fminf(dty, dtz));
-    c.axm = (dtx <= dt ? 1 : 0) | (dty <= dt ? 2 : 0) | (dtz <= dt ? 4 : 0);
-    c.t = c.t + dt + kEpsT;
+  } else {
+    c.t = fminf(c.t, r.t_exit);
   }
-  c.t = fminf(c.t, r.t_exit);
+  const float dt = fminf(dtx, fminf(dty, dtz));
+  c.axm = (dtx <= dt ? 1 : 0) | (dty <= dt ? 2 : 0) | (dtz <= dt ? 4 : 0);
   return c;
 }
 

@@ -24,14 +24,19 @@
 // written, so no clearing pass), and march_planes4_kernel reads the 64
 // marks of its superblock before it marches.
 //
-// What bounds it: as march4.cu, the dependent table loads of every step
-// and the divergence of a warp's rays (latency, not bandwidth); the
-// per-ray bundles and the four f32/i32 planes add 40 bytes a ray of
-// streaming traffic, small beside the march. The mark pass reads the
-// bundle once more (25 bytes a ray) and does no march. Design: 16x8-pixel
-// tiles per 128-thread block, scalar row and pair plane in shared memory,
-// tables through the read-only path, planes in image order so a warp's
-// loads and stores are two contiguous 64-byte runs. Sparse tables (the
+// What bounds it: as march4.cu, instruction issue in the march steps
+// (a fixed chain of float work around dependent table loads), with the
+// divergence of a warp's rays; the per-ray bundles and the four f32/i32
+// planes add 41 bytes a ray of streaming traffic, small beside a march of
+// about ten steps a ray. The mark pass reads the bundle once more (25
+// bytes a ray) and does no march. Design: march_fused4's (march4.cu) on
+// the state planes: the shared step (march4_common.cuh march_step, with
+// the exact cell inverse, the integer bounds test and one exit-axis mask
+// a leg); a 128-thread block for each 16x8 tile, laid out as four 8x4
+// pixel groups in 2x2, one a warp (their rays diverge less than a 16x2
+// row pair's; a warp's bundle loads and plane stores are four 32-byte
+// runs); a budget of 64 registers a thread; scalar row and pair plane in
+// shared memory, tables through the read-only path. Sparse tables (the
 // TPU kernel's sparse=True, :747-806) are a template switch of the march
 // (march4_common.cuh content_row); the marks read no tables and have none.
 
@@ -44,6 +49,10 @@ using namespace v4;
 constexpr int kSbTx = 8;              // superblock (one TPU block of 64 tiles), tiles
 constexpr int kSbTy = 8;
 constexpr int kFlZero = -0x30000000;  // flags read from an all-zero state plane
+constexpr int kGroupW = 8;            // a warp's pixels: 8 x 4, four to a tile in 2x2
+constexpr int kGroupH = 4;
+// blocks an SM must hold: a budget of 64 registers a thread
+constexpr int kMinBlocks = 8;
 
 // The ray of pixel (px, py) and whether it is active at start: camera
 // rays need a valid tile and the camera strictly inside the world;
@@ -101,7 +110,7 @@ touched4_kernel(const float* __restrict__ scal, const float* __restrict__ origin
 // Pass 2: march every ray of a superblock with a marked tile; pass the
 // start state of any other superblock through. kSparse: sparse tables.
 template <bool kPerRay, bool kSparse>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2,
                      const int* __restrict__ sw_cont, const int* __restrict__ wmeta_pad,
                      const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -120,8 +129,10 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
     marked = tx < gridDim.x && ty < gridDim.y && marks[ty * gridDim.x + tx] != 0;
   }
   const bool on = __syncthreads_or(marked);
-  const int px = blockIdx.x * kTileW + (threadIdx.x % kTileW);
-  const int py = blockIdx.y * kTileH + (threadIdx.x / kTileW);
+  // warp g of the block marches the 8x4 group (g % 2, g / 2) of its tile
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int px = blockIdx.x * kTileW + (g & 1) * kGroupW + lane % kGroupW;
+  const int py = blockIdx.y * kTileH + (g >> 1) * kGroupH + lane / kGroupW;
   if (px >= width || py >= height) return;
   const size_t o = static_cast<size_t>(py) * width + px;
 
@@ -136,7 +147,7 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
     we[o] = kPerRay ? -1.0f : 0.0f;
     return;
   }
-  const World w{gpair, sw_cont, wmeta_pad, nw, ns, gs, (nw + (1 << gs) - 1) >> gs, s[3]};
+  const World w = make_world(gpair, sw_cont, wmeta_pad, nw, ns, gs, s[3]);
   const Leg c = march_leg<kSparse>(w, r, fl0, step_cap_of(s));
   const int vox = c.hit ? decode_vox<kSparse>(w, r, c.t) : 0;
   ts[o] = c.t;
@@ -144,6 +155,11 @@ march_planes4_kernel(const float* __restrict__ scal, const int* __restrict__ gw2
   wa[o] = c.water;
   we[o] = c.wenter;
 }
+
+}  // namespace
+
+#ifndef PLANES4_HOST_TEST  // tests/torch_planes4_host.cpp builds the code above for the CPU
+namespace {
 
 dim3 tile_grid(int height, int width) {
   return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
@@ -195,3 +211,4 @@ extern "C" int march_planes4_launch(const float* scal, const int* gw2, const int
      marks, ts, fl, wa, we, height, width, nw, ns, gs);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // PLANES4_HOST_TEST
