@@ -12,11 +12,25 @@ once. It also splits the device time of a v2 trace (CUDA graph) into its
 outputs) and the rest. Needs one CUDA card:
 
     python3 chip_profile.py
+
+``ab`` mode compares the kernels of several source trees (directories
+holding ``voxelraytracing_tpu_torch/csrc``, such as an unpacked ``git
+archive`` of a parent commit, and ``.``) in turns: the trees in the order
+given, then in reverse. Each turn loads that tree's kernels (built where
+its sources differ from this checkout's) in place of this checkout's and
+runs ``chip_smoke.py``'s checks and timing of the shadowed frame's
+launches at 1080p (phases 7 and 10: the fused kernel, the marks, the
+planes, the shade) and of the probes (phase 29); any mismatch with a
+plain version fails:
+
+    python3 chip_profile.py ab PARENT_TREE .
 """
 
 import ctypes
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -190,19 +204,97 @@ def v2_trace_split(rg1, static):
         t2.march2 = real
 
 
+def tree_libs(trees):
+    """For each source tree, {name: library} of its ``csrc/<name>.cu``
+    files whose sources (the file or a shared header) differ from this
+    checkout's, built into ``build/kernels/ab/<i>/``, one nvcc each, all
+    at once. The trees' C entry points must take this checkout's
+    arguments (``_build._SIGNATURES``)."""
+    from voxelraytracing_tpu_torch import _build
+
+    def sources(root):
+        d = Path(root) / "voxelraytracing_tpu_torch" / "csrc"
+        return {f.name: f.read_bytes() for f in d.glob("*.cu*")}
+
+    mine = sources(_build._PKG.parent)
+    jobs = []
+    for i, tree in enumerate(trees):
+        src = sources(tree)
+        same_headers = all(src.get(k) == b for k, b in mine.items()
+                           if k.endswith(".cuh"))
+        jobs += [(i, tree, n) for n in _build.KERNELS
+                 if not same_headers or src[f"{n}.cu"] != mine[f"{n}.cu"]]
+
+    def build(job):
+        i, tree, name = job
+        out = _build.BUILD_DIR / "ab" / str(i) / f"lib{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        src = Path(tree) / "voxelraytracing_tpu_torch" / "csrc" / f"{name}.cu"
+        r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                            str(out), str(src)], capture_output=True,
+                           text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
+        for ln in cs.ptxas_lines(r.stdout + r.stderr):
+            print(f"[ab] {tree}: {name}.cu {ln}", flush=True)
+        lib = ctypes.CDLL(str(out))
+        for fn, (restype, argtypes) in _build._SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        return lib
+
+    per = [{} for _ in trees]
+    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        for (i, _, name), lib in zip(jobs, pool.map(build, jobs)):
+            per[i][name] = lib
+    return per
+
+
+def ab(trees):
+    """chip_smoke.py's kernel timing of each tree, in turns: its checks of
+    the shadowed frame's launches against their plain versions (phase 7,
+    bench camera), its timing of each of them (phase 10, 1080p) and its
+    probes (phase 29), with the tree's kernels loaded in place of this
+    checkout's."""
+    from voxelraytracing_tpu_torch import _build
+    from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
+    from voxelraytracing_tpu_torch.ops.wavefront4 import prepare_grid4
+
+    per = tree_libs(trees)
+    own = {n: _build.load(n) for n in _build.KERNELS}
+    rg, mats, v = cs.build_world(8)
+    prep = prepare_grid4(rg)
+    lut = color_lut_rows(mats.color).to("cuda")
+    static = cs.bench_cams(v, cs.WIDTH, cs.HEIGHT)[0]
+    order = list(range(len(trees))) + list(reversed(range(len(trees))))
+    for i in order:
+        _build._libs.update({**own, **per[i]})
+        tag = f"ab {trees[i]}"
+        cs.compare_shadows(rg, prep, lut, [static], tag)
+        out = cs.time_shadows(rg, prep, lut, v, (cs.WIDTH, cs.HEIGHT), tag)
+        cs.say(tag, "device ms: " + ", ".join(
+            f"{k[:-4]} {out[k]:.5f}" for k in out if k.endswith("_dev"))
+            + f"; launch floor {cs.launch_floor():.5f}")
+        cs.phase_probes(tag)
+    _build._libs.update(own)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
-    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
-    from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
+    if sys.argv[1:2] == ["ab"]:
+        return ab(sys.argv[2:])
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
+
     rg, mats, v = cs.build_world(8)
     lut = color_lut_rows(mats.color).to("cuda")
     static, _ = cs.bench_cams(v, cs.WIDTH, cs.HEIGHT)

@@ -36,7 +36,14 @@ nvcc per source, all at once):
      none); a camera with no basis (every direction NaN) at 1920x1080: the
      fused kernel with and without shadows and the split frame's launches
      (planes, shade) vs their plain versions, exactly equal, every pixel
-     packed 0xFF000000 (a NaN sky is byte 0, as in JAX's frame);
+     packed 0xFF000000 (a NaN sky is byte 0, as in JAX's frame); the
+     camera marks (``touched4``) at the edges of their design, each bit
+     for bit against the plain version: a camera outside the world, one
+     0.0004 voxels outside a face and a step cap of 0 (the launch's
+     uniform exits), the camera with no
+     basis, a 1000x500 frame (partial last tile row and column), and a
+     camera 0.0004 voxels inside a world face, many of whose tiles their
+     representative ray does not decide;
   8. 320x180 with shadows, card vs CPU: 0 hit, voxel and shadow-bit
      mismatches, every pixel within 2/255;
   9. as 6 with shadows: 10 shadowed frames through ``render_packed``
@@ -49,6 +56,12 @@ nvcc per source, all at once):
      as the device time of the same calls replayed from a CUDA graph; the
      SIMT efficiency of the timed static frames (one thread a pixel, warps
      of 16x2 and of 8x4 pixels, from the step counts in the flags);
+     ``touched4``'s camera and bundle modes apart, each beside its least
+     time and the launch floor (an empty kernel's device ms), camera
+     mode also with the rays its kernel's order evaluates (from the
+     plain version's start flags) and the least time of those, which is
+     the one the kernels line carries (the every-ray formula is printed
+     beside it, to compare with earlier runs);
  11. phases 4 and 10's primary timing and SIMT efficiency on the 16-chunk
      world (512³ voxels, 117 MB of tables), bench camera + 12 orbit
      cameras;
@@ -282,8 +295,14 @@ def ptxas_report(name):
     compiler output of ``csrc/<name>.cu``."""
     from voxelraytracing_tpu_torch import _build
 
+    return ptxas_lines(_build.build_log(name))
+
+
+def ptxas_lines(log):
+    """Registers, shared memory and spills of each __global__ in the
+    ``-Xptxas -v`` output ``log``."""
     out, fn, spill = [], None, "spills ?"
-    for ln in _build.build_log(name).splitlines():
+    for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = demangle(m.group(1))
@@ -538,6 +557,87 @@ def compare_nan_direction(rg, prep, lut, cam, phase):
     check(sky, "a NaN-direction pixel is not 0xFF000000")
 
 
+def mark_order():
+    """int64[129]: the in-tile pixels (y * 16 + x) of a 16x8 tile in the
+    order ``touched4``'s camera kernel (``csrc/planes4.cu``
+    ``touched4_camera_kernel``) evaluates them, which stops at the first
+    ray that starts: the tile's representative (its centre, 8, 4), alone;
+    then four passes of a warp, lane l of pass j at pixel (2 (l % 8) +
+    j % 2, 2 (l // 8) + j // 2), each pass whole."""
+    j, lane = torch.meshgrid(torch.arange(4), torch.arange(32), indexing="ij")
+    passes = (2 * (lane // 8) + j // 2) * 16 + 2 * (lane % 8) + j % 2
+    return torch.cat([torch.tensor([4 * 16 + 8]), passes.reshape(-1)])
+
+
+def mark_rays(scal, height, width):
+    """i64[ty, tx]: the rays ``touched4``'s camera kernel
+    (``csrc/planes4.cu`` ``touched4_camera_kernel``) evaluates in each
+    tile, from the plain version's start flags: the tile's representative
+    ray, then, if that one does not start, 32 rays a pass up to the first
+    pass in which a ray starts (4 passes when none does); none in an
+    invalid tile or in a launch whose camera is not strictly inside the
+    world or whose step cap is 0."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    sf = [float(x) for x in scal.cpu().numpy()]
+    ty, tx = -(-height // 8), -(-width // 16)
+    act = t4.start_flags(scal, height=height, width=width).reshape(
+        height, width).to(torch.int32)
+    a = torch.nn.functional.pad(act, (0, tx * 16 - width, 0, ty * 8 - height))
+    a = a.reshape(ty, 8, tx, 16).permute(0, 2, 1, 3).reshape(ty, tx, 128)
+    a = a[..., mark_order().to(a.device)]
+    by_pass = a[..., 1:].reshape(ty, tx, 4, 32).amax(-1)
+    passes = torch.where(by_pass.any(-1), by_pass.argmax(-1) + 1, 4)
+    rays = torch.where(a[..., 0] != 0, 1, 1 + 32 * passes)
+    live = (all(0.0 < c < sf[3] for c in sf[:3])
+            and t4._step_cap(sf) > 0)
+    valid = ((torch.arange(tx, device=a.device) < sf[25])[None, :]
+             & (torch.arange(ty, device=a.device) < sf[26])[:, None])
+    return rays * valid * live
+
+
+def compare_mark_edges(rg, prep, lut, v, phase):
+    """``touched4``'s camera marks vs the plain version, bit for bit, at
+    the edges of the kernel's design: its uniform exits (a camera outside
+    the world, one 0.0004 voxels outside a face, a step cap of 0), a
+    camera with no basis, a frame of partial tiles and a camera 0.0004
+    voxels inside a world face."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+
+    static = bench_cams(v, WIDTH, HEIGHT)[0]
+    cams = {
+        "outside": CamData.create((30.0, 45.0, 0.0), (-50.0, 150.0, 128.0),
+                                  70.0, (WIDTH, HEIGHT)),
+        "cap 0": static,
+        "no basis": no_basis(static),
+        "1000x500": bench_cams(v, 1000, 500)[0],
+        "face": CamData.create((0.0, 60.0, 0.0), (0.0004, 150.0, 128.0),
+                               70.0, (WIDTH, HEIGHT)),
+        "outside a face": CamData.create((0.0, 180.0, 0.0),
+                                         (-0.0004, 150.0, 128.0), 70.0,
+                                         (WIDTH, HEIGHT)),
+    }
+    bad, info = {}, []
+    for name, cam in cams.items():
+        args, kw = frame_inputs(rg, prep, cam, lut)
+        scal = args[0]
+        if name == "cap 0":
+            scal = scal.clone()
+            scal[23] = 0.75  # truncates to a cap of 0
+        dims = dict(height=kw["height"], width=kw["width"])
+        got = t4.touched4(scal, **dims)
+        want = t4.touched4_ref(scal, **dims)
+        bad[name] = words_differ(got, want)
+        info.append(f"{name} {dims['width']}x{dims['height']}: "
+                    f"{int(want.sum())} of {want.numel()} tiles marked, "
+                    f"rays evaluated {int(mark_rays(scal, **dims).sum())}")
+    say(phase, "camera marks at the edges, bytes differing from the plain "
+        "version: " + ", ".join(f"{k} {n}" for k, n in bad.items())
+        + "; " + "; ".join(info))
+    check(not any(bad.values()), "touched4 camera marks disagree at an edge")
+
+
 def event_ms(fn, n):
     """Milliseconds per call of ``n`` calls, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -578,6 +678,16 @@ def time_kernel(out, key, fn):
     ``out[key + "_dev"]``: the same calls' device ms (:func:`graph_ms`)."""
     out[key] = median_windows(fn, N_ORBIT)
     out[key + "_dev"] = graph_ms(fn, N_ORBIT)
+
+
+def launch_floor():
+    """Device ms of an empty kernel (one block of 32 threads), timed as
+    the kernels are: N_ORBIT launches in one CUDA graph."""
+    from voxelraytracing_tpu_torch import _build
+
+    empty = _build.load("probes3").empty_launch
+    return graph_ms(lambda i: empty(torch.cuda.current_stream().cuda_stream),
+                    N_ORBIT)
 
 
 def plain_ms(fn):
@@ -702,6 +812,7 @@ def time_shadows(rg, prep, lut, v, size, phase):
     time_kernel(out, "shade", lambda i: t4.shade4(
         p["srow"], p["lut"], ts, fl, wa, we, p["sh"], **skw2))
     out["plain_fused"] = plain_ms(lambda: t4.march_fused4_ref(*sa, **skw))
+    out["mark_rays_camera"] = int(mark_rays(sc, **dims).sum())
     out["plain_touched_camera"] = plain_ms(
         lambda: t4.touched4_ref(sc, **dims))
     out["plain_touched_rays"] = plain_ms(
@@ -822,6 +933,9 @@ def shadow_bounds(sh):
             + px * PIXEL_OPS),
         # start marks: one byte a 128-ray tile out; bundles in for rays
         "touched_camera": bound(px / 128, px * MARK_OPS_CAMERA),
+        # the same on the rays the camera kernel's order evaluates
+        "touched_camera_evaluated": bound(
+            px / 128, sh["mark_rays_camera"] * MARK_OPS_CAMERA),
         "touched_rays": bound(25 * px + px / 128, px * MARK_OPS_RAYS),
         # camera planes: 4 planes out; camera ray + ray constants a pixel
         "planes_camera": bound(sh["rows_primary"] * ROW_BYTES + 16 * px,
@@ -2391,11 +2505,7 @@ def phase_probes(phase):
          lambda: tab.index_select(0, idx[:, 0]),
          (ps.BLK * 4 + rows[1] * row_b + idx.numel() * 4, 0)),
     ]
-    from voxelraytracing_tpu_torch import _build
-
-    empty = _build.load("probes3").empty_launch
-    floor = graph_ms(lambda i: empty(torch.cuda.current_stream().cuda_stream),
-                     N_ORBIT)
+    floor = launch_floor()
     say(phase, f"launch floor: an empty kernel {floor:.5f} ms on the device "
         f"(one block of 32 threads, {N_ORBIT} launches in a CUDA graph, as "
         f"each probe below is timed)")
@@ -2479,6 +2589,7 @@ def main():
         s, o = bench_cams(v, *size)
         errs[size] = compare_shadows(rg, prep, lut, [s] + o, 7)
     compare_nan_direction(rg, prep, lut, static, 7)
+    compare_mark_edges(rg, prep, lut, v, 7)
     compare_on_cpu(rg_cpu, rg, mats, v, 8, shadows=True)
     counts = count_main_path(rg, mats, v)
     t8 = time_primary(rg, prep, lut, mats, v, 10)
@@ -2551,18 +2662,36 @@ def main():
     say(10, f"{WIDTH}x{HEIGHT} march_fused4 (primary): "
         f"{t8['kernel_static_dev']:.4f} ms on the device, least "
         f"{b_primary[0]:.5f} ms, bound by {b_primary[1]}")
+    floor = launch_floor()
     for size in SIZES:
         b = shadow_bounds(ts[size])
+        tsz = ts[size]
         for k, (bms, by) in b.items():
-            say(10, f"{size[0]}x{size[1]} {k}: {ts[size][k + '_dev']:.4f} ms "
+            if k.startswith("touched"):
+                continue
+            say(10, f"{size[0]}x{size[1]} {k}: {tsz[k + '_dev']:.4f} ms "
                 f"on the device, least "
                 f"{bms:.5f} ms, bound by {by}")
+        (bc, byc), (be, bye), (bb, byb) = (
+            b["touched_camera"], b["touched_camera_evaluated"],
+            b["touched_rays"])
+        say(10, f"{size[0]}x{size[1]} touched4 camera mode: "
+            f"{tsz['touched_camera_dev']:.5f} ms on the device, least "
+            f"{bc:.6f} ms (every ray, bound by {byc}), launch floor "
+            f"{floor:.5f} ms; rays its order evaluates "
+            f"{tsz['mark_rays_camera']} of {tsz['pixels']}, least on those "
+            f"{be:.6f} ms (bound by {bye}; the kernels line's bound)")
+        say(10, f"{size[0]}x{size[1]} touched4 bundle mode: "
+            f"{tsz['touched_rays_dev']:.5f} ms on the device, least "
+            f"{bb:.6f} ms (bound by {byb}), launch floor {floor:.5f} ms")
     sh = ts[(WIDTH, HEIGHT)]
     b = shadow_bounds(sh)
     b_fused, b_cam, b_rays, b_shade = (
         b["fused_kernel_static"], b["planes_camera"], b["planes_rays"],
         b["shade"])
-    b_tcam, b_trays = b["touched_camera"], b["touched_rays"]
+    # the camera marks' least time on the rays this run's data needs them
+    # to evaluate (phase 10 prints the every-ray formula beside it)
+    b_tcam, b_trays = b["touched_camera_evaluated"], b["touched_rays"]
     bp = pt_bounds(tp)
     for k in ("matfetch4", "pt4", "planes_bounce"):
         say(15, f"{WIDTH}x{HEIGHT} {k}: {tp[k + '_dev']:.4f} ms on the "

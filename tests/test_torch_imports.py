@@ -206,8 +206,11 @@ def test_chip_smoke_fails_without_the_port_or_a_card(tmp_path):
     runs = [tmp_path]
     if not torch.cuda.is_available():
         runs.append(ROOT)
-    for cwd in runs:
-        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
-                           capture_output=True, text=True, timeout=300)
-        assert r.returncode != 0, (cwd, r.stdout, r.stderr)
-        assert '"ok"' not in r.stdout, (cwd, r.stdout)
+    procs = [(cwd, subprocess.Popen([sys.executable, "chip_smoke.py"],
+                                    cwd=cwd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cwd in runs]  # both at once
+    for cwd, p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode != 0, (cwd, out, err)
+        assert '"ok"' not in out, (cwd, out)

@@ -31,6 +31,8 @@ from voxelraytracing_tpu_torch.world.demo import (
     demo_materials,
 )
 
+from torch_nan_camera import zero_basis
+
 pytestmark = pytest.mark.cuda
 
 CAMS = [
@@ -177,6 +179,66 @@ def test_touched_kernel_equals_plain_version(card_world, i, bundle):
     assert t4.touched4.launches == before + 1
     assert marks.shape == (15, 13) and marks.dtype == torch.uint8
     assert torch.equal(marks, t4.touched4_ref(args[0], *rays, **dims))
+
+
+# a camera 0.0004 voxels inside the world's x = 0 face: at 64x32 tile 14's
+# one ray that starts is the last the camera marks' kernel evaluates
+FACE = ((0.0, 60.0, 0.0), (0.0004, 60.0, 64.0))
+# 0.0004 voxels outside that face, looking along it: some rays are inside
+# the world at EPS_T, none starts
+FACE_OUT = ((0.0, 180.0, 0.0), (-0.0004, 60.0, 64.0))
+
+
+@pytest.mark.parametrize("case", ["outside", "outside_face", "cap_zero",
+                                  "no_basis", "partial", "face"])
+def test_touched_camera_kernel_at_its_edges(card_world, case):
+    """The camera marks' kernel (a representative ray a tile, then the
+    tiles left open a warp each, in passes to the first ray that starts;
+    uniform exits) at the edges of its design: a camera outside the
+    world, one just outside a face and a step cap of 0 (all zeros by the
+    uniform exit), a camera with no basis
+    (NaN directions), a 100x44 frame (partial last tile row and column)
+    and a tile whose one starting ray is the last the kernel evaluates."""
+    rg, prep, mats = card_world
+    rot, eye = {"outside": CAMS[4], "outside_face": FACE_OUT,
+                "face": FACE}.get(case, CAMS[0])
+    size = {"partial": (100, 44), "face": (64, 32)}.get(case, (200, 120))
+    cam = CamData.create(rot, eye, 70.0, size)
+    if case == "no_basis":
+        cam = zero_basis(cam)
+    args, _, dims, _ = _rays(rg, prep, mats, cam)
+    scal = args[0].clone()
+    if case == "cap_zero":
+        scal[23] = 0.75  # truncates to a cap of 0
+    marks = t4.touched4(scal, **dims)
+    torch.cuda.synchronize()
+    want = t4.touched4_ref(scal, **dims)
+    assert torch.equal(marks, want)
+    assert bool(want.any()) == (case in ("partial", "face"))
+    if case == "face":
+        assert int(want.reshape(-1)[14]) == 1
+
+
+def test_planes_kernel_nan_bundle(card_world):
+    """A bundle whose active rays in one tile have NaN directions, in a
+    superblock that marches: no step, a NaN t (as in the plain version;
+    NaN words compared as NaN), every other word equal."""
+    rg, prep, mats = card_world
+    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, (200, 120))
+    args, _, dims, (o, d, act) = _rays(rg, prep, mats, cam, bundle=True)
+    d, act = d.clone(), act.clone()
+    d[:8, 16:32] = float("nan")
+    act[:8, 16:32] = True
+    scal, gw2, _, swc, wmp = args
+    got = t4.march_planes4(scal, gw2, swc, wmp, o, d, act, **dims)
+    want = t4.march_planes4_ref(scal, gw2, swc, wmp, o, d, act, **dims)
+    for a, b in zip(got, want):
+        same = a.view(torch.int32) == b.view(torch.int32)
+        if a.dtype.is_floating_point:
+            same |= a.isnan() & b.isnan()
+        assert bool(same.all())
+    assert bool(got[0][:8, 16:32].isnan().all())
+    assert bool(t4.touched4_ref(scal, o, d, act, **dims)[:8, :8].any())
 
 
 @pytest.mark.parametrize("i", range(len(CAMS)))
@@ -794,6 +856,19 @@ def test_row_gather_kernels_equal_plain_version(probe_data, kind, nb):
     kw = {"async_pipelined": {"pipelined": True},
           "async_serial": {"pipelined": False}}.get(kind, {})
     got = _counted(fn, ids, tab, **kw)
+    assert torch.equal(got, pp.gather_rows_ref(ids, tab))
+
+
+@pytest.mark.parametrize("case", ["repeated", "edges"])
+def test_gather_rows_smem_repeated_and_edge_ids(probe_data, case):
+    """``gather_rows_smem`` (a warp a few rows, their ids broadcast to every
+    lane) on ids that repeat three rows, and on rows 0 and
+    4095 only."""
+    from voxelraytracing_tpu_torch.experiments import v3_probe_prims as pp
+
+    tab, ids = probe_data["tab"], probe_data["ids"]
+    ids = (ids % 3) * 1000 if case == "repeated" else (ids % 2) * (pp.NROWS - 1)
+    got = _counted(pp.gather_rows_smem, ids.contiguous(), tab)
     assert torch.equal(got, pp.gather_rows_ref(ids, tab))
 
 

@@ -8,13 +8,19 @@ threads as std::threads, ``-ffp-contract=off`` as ``--fmad=false``) and
 driven by ``tests/torch_planes4_host.cpp``. ``march_planes4_kernel``
 (four 8x4 pixel groups a 16x8 tile, the shared march step of
 ``march4_common.cuh``) reads the marks of ``touched4_ref`` and is held to
-``march_planes4_ref`` word for word; ``touched4_kernel``'s own marks to
+``march_planes4_ref`` word for word; the mark kernels' own marks to
 ``touched4_ref``: dense and sparse tables, camera rays, shadow bundles
 (inactive rays among them) and a path tracer's bounce bundle, a step cap
 of 4, partial tiles, superblocks passed through (a camera outside the
 world; a bundle whose rays start in some superblocks only), a camera with
 no basis (every direction NaN) and the 34-chunk scene whose sparse
-tables hold -1 rows.
+tables hold -1 rows. The camera marks (``touched4_camera_kernel``: a
+warp for each 32 tiles, uniform exits, a stop after the first pass in
+which a ray starts) also on their uniform exits (a camera outside, a
+step cap of 0), on partial blocks and warps of the launcher's grid, and
+on a tile whose one starting ray is the last the kernel evaluates;
+the bundle marks on a hand-made bundle whose tiles start on their last
+ray, or not at all (NaN directions).
 """
 
 import shutil
@@ -35,6 +41,7 @@ from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
 from voxelraytracing_tpu_torch.world import demo
 from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
 
+from chip_smoke import mark_order
 from torch_nan_camera import zero_basis
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
@@ -47,6 +54,15 @@ CAMS = [
     ((-20.0, 300.0, 0.0), (64.0, 20.0, 64.0)),
 ]
 OUTSIDE = ((30.0, 45.0, 0.0), (-50.0, 75.0, 64.0))
+# a camera 0.0004 voxels inside the world's x = 0 face: rays with dx below
+# -0.4 leave the world before EPS_T, so at 64x32 the line between rays that
+# start and rays that do not cuts tile 14 (x 32-47, y 24-31) right at the
+# pixel the camera marks' kernel evaluates last
+FACE = ((0.0, 60.0, 0.0), (0.0004, 60.0, 64.0))
+# a camera 0.0004 voxels outside that face, looking along it: its rays
+# with dx above 0.4 are inside the world at EPS_T, yet none starts (the
+# camera is outside)
+FACE_OUT = ((0.0, 180.0, 0.0), (-0.0004, 60.0, 64.0))
 # tests/test_torch_sparse.py's 34-chunk scene (tests/test_supercell.py)
 W34_CELLS = [(0, 0, 0), (1, 0, 0), (0, 0, 1), (1, 0, 1), (32, 0, 32),
              (33, 0, 33), (16, 8, 16)]
@@ -93,16 +109,17 @@ def worlds():
     return {False: (rg, t4.prepare_grid4(rg)), True: (b.grid(), b.prepared())}
 
 
-def _run_host(exe, tmp, tables, rays, h, w, sparse_ns):
+def _run_host(exe, tmp, tables, rays, h, w, sparse_ns, march=True):
     """Both kernels on the CPU -> (marks, ts, fl, wa, we) as numpy, the
-    march reading ``touched4_ref``'s marks."""
+    march reading ``touched4_ref``'s marks; without ``march`` the marks
+    alone."""
     scal, gw2, swc, wmp = tables
     nw, ns, gs = t4._world_dims(swc, wmp, sparse_ns)
     marks = t4.touched4_ref(scal, *rays, height=h, width=w)
     inp, outp = tmp / "in.bin", tmp / "out.bin"
     with open(inp, "wb") as f:
-        f.write(struct.pack("8i", h, w, nw, ns, gs, int(bool(sparse_ns)),
-                            swc.shape[0], int(bool(rays))))
+        f.write(struct.pack("9i", h, w, nw, ns, gs, int(bool(sparse_ns)),
+                            swc.shape[0], int(bool(rays)), int(march)))
         for x in (scal, gw2, swc, wmp, *rays, marks):
             f.write(x.contiguous().numpy().tobytes())
     subprocess.run([str(exe), str(inp), str(outp)], check=True, timeout=120)
@@ -110,6 +127,17 @@ def _run_host(exe, tmp, tables, rays, h, w, sparse_ns):
     nm = marks.numel()
     planes = np.frombuffer(got[nm:], np.int32).reshape(4, h, w)
     return np.frombuffer(got[:nm], np.uint8).reshape(marks.shape), planes
+
+
+def _words_differ(got, want):
+    """Words of ``got`` (int32 bits) that differ from ``want``'s bits; two
+    NaNs count as equal, whatever their bits (a NaN's payload is the
+    platform's: torch's vectorised CPU minimum gives 0xFFFFFFFF)."""
+    w = want.contiguous()
+    bad = got != w.view(torch.int32).numpy()
+    if w.dtype.is_floating_point:
+        bad &= ~(np.isnan(got.view(np.float32)) & w.isnan().numpy())
+    return int(bad.sum())
 
 
 def _held(exe, tmp, tables, rays, h, w, sparse_ns=0):
@@ -121,8 +149,7 @@ def _held(exe, tmp, tables, rays, h, w, sparse_ns=0):
                                 width=w, sparse_ns=sparse_ns)
     bad = int((marks != t4.touched4_ref(scal, *rays, height=h,
                                          width=w).numpy()).sum())
-    bad += sum(int((g != x.contiguous().view(torch.int32).numpy()).sum())
-               for g, x in zip(planes, want))
+    bad += sum(_words_differ(g, x) for g, x in zip(planes, want))
     return bad, want
 
 
@@ -250,3 +277,105 @@ def test_34_chunk_scene(host_kernel, tmp_path):
             host_kernel, tmp_path, b.grid(), b.prepared(),
             CamData.create(rot, eye, 70.0, (48, 24)), cap=2000)
         assert bad == 0, (rot, eye)
+
+
+def _first_in_order(act, h, w):
+    """Per tile (row-major), the position in the camera marks' order
+    (``chip_smoke.mark_order``: the representative, then 4 passes of 32)
+    of its first ray that starts, or 129."""
+    ty, tx = -(-h // 8), -(-w // 16)
+    a = torch.nn.functional.pad(act.reshape(h, w).to(torch.uint8),
+                                (0, tx * 16 - w, 0, ty * 8 - h))
+    a = a.reshape(ty, 8, tx, 16).permute(0, 2, 1, 3).reshape(-1, 128)
+    a = a[:, mark_order()].bool()
+    return torch.where(a.any(1), a.to(torch.int8).argmax(1), 129)
+
+
+@pytest.mark.parametrize("case", ["outside", "outside_face", "cap_zero"])
+def test_camera_marks_uniform_exit(host_kernel, worlds, tmp_path, case):
+    """A camera outside the world, one 0.0004 voxels outside a face (some
+    of its rays are inside the world at EPS_T), and a step cap that
+    truncates to 0 (scal[23] = 0.75): no ray starts, every mark 0 (the
+    launch's uniform exit), every superblock passed through."""
+    grid, prep = worlds[False]
+    cam = {"outside": OUTSIDE, "outside_face": FACE_OUT}.get(case, CAMS[0])
+    tables, h, w, _ = _frame(grid, prep, CamData.create(*cam, 70.0, (72, 36)))
+    if case == "cap_zero":
+        tables[0][23] = 0.75
+        assert t4._step_cap([float(x) for x in tables[0]]) == 0
+    if case == "outside_face":
+        sf = [float(x) for x in tables[0]]
+        rays = t4._camera_rays(sf, *t4._pixels(h, w, "cpu"))
+        at = [o + d * t4.EPS_T for o, d in zip(rays[:3], rays[3:])]
+        assert bool(((at[0] >= 0) & (at[1] >= 0) & (at[2] >= 0)).any())
+    bad, (_, fl, _, _) = _held(host_kernel, tmp_path, tables, (), h, w)
+    assert bad == 0 and not t4.touched4_ref(tables[0], height=h,
+                                            width=w).any()
+    assert bool((fl == -0x30000000).all())
+
+
+@pytest.mark.parametrize("size", [(24, 12), (250, 100), (504, 252)])
+def test_camera_marks_partial_tiles(host_kernel, worlds, tmp_path, size):
+    """Frames whose last tile column and row are partial, so invalid, on
+    the launcher's grid of 128 tiles a block: 4 tiles (one warp, three
+    with no tiles), 208 (two blocks, the second's last warp with none)
+    and 1,024 (eight whole blocks)."""
+    grid, prep = worlds[False]
+    for rot, eye in CAMS[:2]:
+        tables, h, w, _ = _frame(grid, prep,
+                                 CamData.create(rot, eye, 70.0, size))
+        assert (w, h) == size and w % 16 and h % 8
+        marks = _run_host(host_kernel, tmp_path, tables, (), h, w, 0,
+                          march=False)[0]
+        want = t4.touched4_ref(tables[0], height=h, width=w).numpy()
+        assert (marks == want).all() and want[:-1, :-1].any()
+        assert not want[-1].any() and not want[:, -1].any()
+
+
+def test_camera_marks_last_ray_in_order(host_kernel, worlds, tmp_path):
+    """A tile whose one ray that starts is the last the camera marks'
+    kernel evaluates (pass 3, lane 31): the warp must not stop before it.
+    Other tiles of the frame are decided by their representative ray, by
+    an earlier pass, or start no ray at all."""
+    grid, prep = worlds[False]
+    tables, h, w, _ = _frame(grid, prep, CamData.create(*FACE, 70.0, (64, 32)))
+    act = t4.start_flags(tables[0], height=h, width=w)
+    first = _first_in_order(act, h, w)
+    assert int(first[14]) == 128
+    assert int(act.reshape(4, 8, 4, 16)[3, :, 2].sum()) == 1
+    assert {0, 129} <= set(first.tolist())
+    assert bool(((first > 0) & (first < 97)).any())
+    bad, _ = _held(host_kernel, tmp_path, tables, (), h, w)
+    assert bad == 0
+    assert t4.touched4_ref(tables[0], height=h, width=w).reshape(-1)[14] == 1
+
+
+def test_bundle_marks_on_hand_made_rays(host_kernel, worlds, tmp_path):
+    """A 48x16 bundle from the world's centre with seeded directions:
+    tile (0, 0) holds one active ray, the pixel the camera marks would
+    evaluate last; tile (1, 0) only active rays with NaN directions;
+    tile (2, 1) only active rays with origins outside the world. Only
+    the first tile is marked, so the superblock marches: the rays with
+    NaN directions take no step and end at a NaN t, as in the plain
+    version."""
+    grid, prep = worlds[False]
+    tables, _, _, _ = _frame(grid, prep, CamData.create(*CAMS[0], 70.0,
+                                                        (48, 16)))
+    h, w = 16, 48
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(h, w, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.full((h, w, 3), 64.0, np.float32)
+    act = np.zeros((h, w), bool)
+    act[7, 15] = True
+    act[:8, 16:32] = True
+    d[:8, 16:32] = np.nan
+    act[8:, 32:] = True
+    o[8:, 32:, 0] = 200.0
+    bundle = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(act))
+    bad, (ts, fl, _, _) = _held(host_kernel, tmp_path, tables, bundle, h, w)
+    marks = t4.touched4_ref(tables[0], *bundle, height=h, width=w)
+    assert bad == 0
+    assert marks.tolist() == [[1, 0, 0], [0, 0, 0]]
+    assert bool(ts[:8, 16:32].isnan().all())
+    assert not bool(((fl[:8, 16:32] >> 5) & 0xFFF).any())

@@ -1,6 +1,6 @@
-"""The probe kernels ``col_gather``, ``row_loop``, ``extract_sum`` and
-``gather_rows_async`` (``csrc/probes3.cu``) run on the CPU against their
-plain versions.
+"""The probe kernels ``col_gather``, ``row_loop``, ``extract_sum``,
+``gather_rows_smem`` and ``gather_rows_async`` (``csrc/probes3.cu``) run
+on the CPU against their plain versions.
 
 The card alone runs the kernels (``tests/test_torch_kernels.py``,
 ``chip_smoke.py`` phase 29); here their device code is compiled with g++
@@ -12,8 +12,9 @@ parity, arrivals and bytes outstanding) of ``gather_rows_async``, and
 aborts where the card would hang: a wait on a phase whose bytes were not
 all copied, or on the wrong parity. Each output word must equal the plain
 version's: at the probe scripts' shapes and inputs, on full-range random
-words, with a partial last block, with one block, and with a sum that
-wraps past 2^31 as JAX's int32 sum does.
+words, with a partial last block, with one block, with repeated ids and
+the first and last rows, and with a sum that wraps past 2^31 as JAX's
+int32 sum does.
 """
 
 import shutil
@@ -132,6 +133,33 @@ def test_gather_rows_async_source_equals_plain(host_probes, tmp_path, case,
                     (nb, pp.IDS, pp.ROW))
     want = pp.gather_rows_async(ids, tab, pipelined=pipelined)
     assert torch.equal(got, want)
+
+
+def _smem_inputs(case):
+    if case in ("script", "random", "one_block"):
+        return _gather_inputs(case)
+    rng = np.random.default_rng(8)
+    if case == "repeated":  # three rows, each many times in a block
+        ids = rng.integers(0, 3, (32, pp.IDS)) * 1000
+    else:  # "edges": rows 0 and rows - 1 only
+        ids = rng.integers(0, 2, (32, pp.IDS)) * (pp.NROWS - 1)
+    return _words(rng, pp.NROWS, pp.ROW), torch.from_numpy(ids.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["script", "random", "one_block",
+                                  "repeated", "edges"])
+def test_gather_rows_smem_source_equals_plain(host_probes, tmp_path, case):
+    """A warp for each four rows, their ids loaded by every lane: the
+    script's arange table and [254, 16] ids; full-range words at 254
+    blocks and at one; ids repeating three rows; ids 0 and rows - 1
+    only."""
+    tab, ids = _smem_inputs(case)
+    nb = ids.shape[0]
+    got = _run_host(host_probes, tmp_path, "gather_rows_smem",
+                    (tab.shape[0], nb), (tab, ids), (nb, pp.IDS, pp.ROW))
+    assert torch.equal(got, pp.gather_rows_smem(ids, tab))
+    if case == "edges":
+        assert set(ids.unique().tolist()) == {0, pp.NROWS - 1}
 
 
 @pytest.mark.parametrize("misuse", ["bar_short", "bar_long", "bar_parity"])

@@ -61,8 +61,9 @@ OUTSIDE_X, OUTSIDE_Z = (-50.0, 75.0, 64.0), (64.0, 75.0, -50.0)
 def _shadow_bundle(trg):
     """The shadow bundle of tests/test_wavefront4.py:96-116, built with
     numpy from the port's primary march: hit points nudged along the
-    normal, unit directions to the sun, active where the primary hit."""
-    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, SIZE)
+    normal, unit directions to the sun, active where the primary hit. At
+    :data:`BIG`, as the other bundle, so one JAX program traces both."""
+    cam = CamData.create(CAMS[0][0], CAMS[0][1], 70.0, BIG)
     origin, dirs = t_camera.generate_rays(cam, np.zeros(3, np.int32),
                                           device="cpu")
     p = t4.trace_wavefront4(trg, origin.numpy(), cam=cam, step_cap=500)
@@ -115,8 +116,8 @@ def world():
         jrg, zero_basis(JCamData.create(*CAMS[0], 70.0, SIZE)), mats.color,
         **KW))
     gold["bundle"] = _shadow_bundle(trg)
-    gold["rays"] = j_trace_rays(jrg, *gold["bundle"], width=SIZE[0],
-                                height=SIZE[1], rounds=64, step_cap=500)
+    gold["rays"] = j_trace_rays(jrg, *gold["bundle"], width=BIG[0],
+                                height=BIG[1], rounds=64, step_cap=500)
     gold["half"] = _half_bundle()
     gold["half_rays"] = j_trace_rays(jrg, *gold["half"], width=BIG[0],
                                      height=BIG[1], rounds=64)
@@ -193,8 +194,8 @@ def test_trace_rays_shadow_bundle_matches_jax(world):
     tolerances."""
     trg, _, gold = world
     so, sd, hit = gold["bundle"]
-    res = t4.trace_wavefront4_rays(trg, so, sd, hit, width=SIZE[0],
-                                   height=SIZE[1], step_cap=500)
+    res = t4.trace_wavefront4_rays(trg, so, sd, hit, width=BIG[0],
+                                   height=BIG[1], step_cap=500)
     assert_results_match(res, gold["rays"])
     shadowed = res.hit.numpy()
     assert not shadowed[~hit].any()

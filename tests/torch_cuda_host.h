@@ -155,6 +155,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 
 // The word of lane `src`.
 template <class T>

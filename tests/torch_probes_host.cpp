@@ -12,6 +12,9 @@
 //   torch_probes_host gather_rows_async IN OUT
 //     IN: int32 rows nb pipelined, tab i32[rows, 128], ids i32[nb, 16];
 //     OUT: i32[nb, 16, 128]
+//   torch_probes_host gather_rows_smem IN OUT
+//     IN: int32 rows nb, tab i32[rows, 128], ids i32[nb, 16];
+//     OUT: i32[nb, 16, 128]
 //   torch_probes_host bar_short|bar_long|bar_parity
 //     a barrier misused on purpose: exits through abort() with a message
 #include <cstdio>
@@ -169,16 +172,21 @@ int main(int argc, char** argv) {
     out.assign(8 * kRow, 0x7eadbeef);
     host_launch(1, 1, kSumThreads, extract_sum_kernel, v.data(),
                 reinterpret_cast<int4*>(out.data()));
-  } else if (which == "gather_rows_async") {
-    const auto hdr = read<int>(f, 3);
+  } else if (which == "gather_rows_async" || which == "gather_rows_smem") {
+    const bool async = which == "gather_rows_async";
+    const auto hdr = read<int>(f, async ? 3 : 2);
     const int rows = hdr[0], nb = hdr[1];
     const auto tab = read<int>(f, static_cast<size_t>(rows) * kRow);
     const auto ids = read<int>(f, static_cast<size_t>(nb) * kIds);
     out.assign(static_cast<size_t>(nb) * kIds * kRow, 0x7eadbeef);
-    host_launch(nb, 1, 32,
-                hdr[2] ? gather_rows_async_kernel<true> : gather_rows_async_kernel<false>,
-                ids.data(), reinterpret_cast<const int4*>(tab.data()),
-                reinterpret_cast<int4*>(out.data()));
+    const auto* t4 = reinterpret_cast<const int4*>(tab.data());
+    auto* o4 = reinterpret_cast<int4*>(out.data());
+    if (async)
+      host_launch(nb, 1, 32,
+                  hdr[2] ? gather_rows_async_kernel<true> : gather_rows_async_kernel<false>,
+                  ids.data(), t4, o4);
+    else
+      host_launch(nb, 1, 128, gather_rows_smem_kernel, ids.data(), t4, o4);
   } else {
     return 2;
   }

@@ -60,9 +60,22 @@ __device__ __forceinline__ unsigned ld(const int* p) {
   return static_cast<unsigned>(__ldg(p));
 }
 
+// min(a, b) as torch.minimum takes it: a NaN in either gives NaN (fminf
+// would drop it); one min.NaN instruction on the card.
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a ? a : (b != b ? b : fminf(a, b));
+#endif
+}
+
+// The inverse of a direction component held at least 1e-7 from 0, as
+// torch.clamp holds it: a NaN component stays NaN.
 __device__ __forceinline__ float inv_dir(float c) {
-  const float c2 = c >= 0.0f ? fmaxf(c, 1e-7f) : fminf(c, -1e-7f);
-  return 1.0f / c2;
+  return 1.0f / (c >= 0.0f ? fmaxf(c, 1e-7f) : min_nan(c, -1e-7f));
 }
 
 // DDA distance to the exit face of the current cell along one axis.
@@ -149,6 +162,20 @@ __device__ __forceinline__ World make_world(const unsigned* gpair, const int* sw
                static_cast<unsigned>(v), wcell, 1.0f / wcell};  // a power of two: exact
 }
 
+// The slab exit of a ray from (ox, oy, oz) with inverse directions
+// (ivx, ivy, ivz) through the world [0, v)^3, capped at 4v + 16
+// (wavefront4.py _make_leg): make_ray's t_exit, and the start test of
+// planes4.cu's camera marks, which builds no Ray. NaN when an origin or
+// direction component is NaN, as in the plain version (both operands of
+// each fmaxf are NaN together).
+__device__ __forceinline__ float slab_exit(float ox, float oy, float oz, float ivx, float ivy,
+                                           float ivz, float v) {
+  const float slx = fmaxf((0.0f - ox) * ivx, (v - ox) * ivx);
+  const float sly = fmaxf((0.0f - oy) * ivy, (v - oy) * ivy);
+  const float slz = fmaxf((0.0f - oz) * ivz, (v - oz) * ivz);
+  return min_nan(min_nan(slx, min_nan(sly, slz)), 4.0f * v + 16.0f);
+}
+
 // A ray and its per-ray DDA constants (wavefront4.py _make_leg).
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -179,10 +206,7 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, 
   r.bgx = fabsf(ivx) >= kBigIv;
   r.bgy = fabsf(ivy) >= kBigIv;
   r.bgz = fabsf(ivz) >= kBigIv;
-  const float slx = fmaxf((0.0f - ox) * ivx, (v - ox) * ivx);
-  const float sly = fmaxf((0.0f - oy) * ivy, (v - oy) * ivy);
-  const float slz = fmaxf((0.0f - oz) * ivz, (v - oz) * ivz);
-  r.t_exit = fminf(fminf(slx, fminf(sly, slz)), 4.0f * v + 16.0f);
+  r.t_exit = slab_exit(ox, oy, oz, ivx, ivy, ivz, v);
   return r;
 }
 
@@ -331,7 +355,7 @@ __device__ __forceinline__ Leg march_leg(const World& w, const Ray& r, bool acti
     while (march_step<kSparse>(w, r, c, dtx, dty, dtz, step_cap)) {
     }
   } else {
-    c.t = fminf(c.t, r.t_exit);
+    c.t = min_nan(c.t, r.t_exit);  // NaN for a NaN direction, as in the plain version
   }
   const float dt = fminf(dtx, fminf(dty, dtz));
   c.axm = (dtx <= dt ? 1 : 0) | (dty <= dt ? 2 : 0) | (dtz <= dt ? 4 : 0);

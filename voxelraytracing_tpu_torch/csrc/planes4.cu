@@ -18,9 +18,9 @@
 // ray's t is clamped to its slab exit and its flags carry the direction
 // signs. Those raw planes are the function's output (the split shade
 // reads them; for a camera outside the world the untouched state is all
-// zero), so this file keeps that rule in two kernels, each launched by
-// its own C entry on the caller's stream: touched4_kernel marks each 16x8
-// tile that holds a ray active at start (one byte a tile, every tile
+// zero), so this file keeps that rule in kernels launched by their own C
+// entries on the caller's stream: the mark pass writes one byte for each
+// 16x8 tile, 1 where a ray of the tile takes a first step (every tile
 // written, so no clearing pass), and march_planes4_kernel reads the 64
 // marks of its superblock before it marches.
 //
@@ -39,6 +39,24 @@
 // shared memory, tables through the read-only path. Sparse tables (the
 // TPU kernel's sparse=True, :747-806) are a template switch of the march
 // (march4_common.cuh content_row); the marks read no tables and have none.
+//
+// The marks of camera rays (touched4_camera_kernel) read nothing but the
+// scalar row: a short chain of float work a ray (the camera direction
+// with its IEEE sqrt and divisions, three reciprocals, the slab exit).
+// A block a tile would spend its time scheduling 16,200 blocks at 1080p
+// and staging the row, and every ray's chain would run. The mark is an
+// OR, the same in any order, so the kernel evaluates as few rays as
+// decide it: a warp for each 32 tiles, 4 warps a block, the row read
+// once a block; a launch whose camera is not strictly inside the world
+// or whose step cap is 0 writes zeros without ray math; each lane first
+// tries one ray of one tile, which decides the tile whenever that ray
+// starts, as every ray of a camera inside the world does unless it is
+// within EPS_T of a face; the warp then takes each tile left open 32
+// rays at a time, in four passes that each spread over the tile, to the
+// first that starts.
+// Only the start test's arithmetic is done (no Ray). The marks of
+// bundles (touched4_rays_kernel) must read every ray's 25 bytes, which
+// bounds them, and keep the block a tile.
 
 #include "march4_common.cuh"
 
@@ -86,13 +104,81 @@ __device__ __forceinline__ Ray pixel_ray(const float* s, const float* origins, c
   return make_ray(ox, oy, oz, dx, dy, dz, v);
 }
 
-// Pass 1: marks[tile] = 1 where a ray of the tile is active at start,
-// else 0; one byte for every tile of the launch grid.
-template <bool kPerRay>
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMarkWarps = 4;  // warps a camera-mark block, 32 tiles each
+constexpr int kMarkPasses = kThreads / 32;
+constexpr int kRepX = 8;       // a tile's representative pixel: its centre
+constexpr int kRepY = 4;
+
+// The camera marks' grid: a block for each 32 kMarkWarps tiles.
+constexpr int camera_mark_blocks(int tiles) {
+  return (tiles + 32 * kMarkWarps - 1) / (32 * kMarkWarps);
+}
+
+// Whether the camera ray of pixel (px, py) takes a first step, given the
+// launch's uniform part (camera strictly inside the world, step cap > 0):
+// at t = EPS_T it lies inside the world and before its slab exit, in the
+// op order of make_ray and leg_starts.
+__device__ __forceinline__ bool camera_ray_starts(const float* s, int px, int py) {
+  float dx, dy, dz;
+  camera_dir(s, px, py, dx, dy, dz);
+  const float v = s[3];
+  if (!inside_world(s[0] + dx * kEpsT, s[1] + dy * kEpsT, s[2] + dz * kEpsT, v)) return false;
+  return kEpsT < slab_exit(s[0], s[1], s[2], inv_dir(dx), inv_dir(dy), inv_dir(dz), v);
+}
+
+// Whether the camera ray of pixel (px, py) of the frame starts.
+__device__ __forceinline__ bool pixel_starts(const float* s, int px, int py, int height,
+                                             int width) {
+  return px < width && py < height && camera_ray_starts(s, px, py);
+}
+
+// Pass 1, camera rays: marks[tile] = 1 where a ray of the tile takes a
+// first step, else 0; tile t = ty * tiles_x + tx, every tile of the launch written.
+// Warp w of block b takes tiles 32 g to 32 g + 31 for g = b * kMarkWarps
+// + w (camera_mark_blocks). Lane l first
+// evaluates the representative pixel (kRepX, kRepY) of tile 32 g + l:
+// for a camera inside the world every ray starts but within EPS_T of a
+// face, so this one ray a tile decides almost every tile. The warp then
+// takes the tiles left open one by one, all its lanes together: in pass
+// j (0-3) lane l evaluates pixel (2 (l % 8) + j % 2, 2 (l / 8) + j / 2)
+// of the tile, so each pass spans it, and the warp stops after the
+// first pass in which a ray starts.
+__global__ void __launch_bounds__(kMarkWarps * 32)
+touched4_camera_kernel(const float* __restrict__ scal, unsigned char* __restrict__ marks,
+                       int height, int width, int tiles_x, int tiles) {
+  __shared__ float s[kScal];
+  if (threadIdx.x < kScal) s[threadIdx.x] = scal[threadIdx.x];
+  __syncthreads();
+  const float v = s[3];
+  const bool live = s[0] > 0.0f && s[0] < v && s[1] > 0.0f && s[1] < v && s[2] > 0.0f &&
+                    s[2] < v && 0 < step_cap_of(s);
+  const int lane = threadIdx.x & 31;
+  const int t0 = (blockIdx.x * kMarkWarps + (threadIdx.x >> 5)) * 32;
+  if (t0 >= tiles) return;  // the whole warp
+  const int t = t0 + lane;
+  const int x0 = (t % tiles_x) * kTileW, y0 = (t / tiles_x) * kTileH;
+  const bool valid = live && t < tiles && tile_valid(s, x0, y0);
+  bool any = valid && pixel_starts(s, x0 + kRepX, y0 + kRepY, height, width);
+  const int lx = 2 * (lane & 7), ly = 2 * (lane >> 3);
+  for (unsigned open = __ballot_sync(kFull, valid && !any); open; open &= open - 1) {
+    const int k = __ffs(open) - 1;
+    const int tk = t0 + k;
+    const int xk = (tk % tiles_x) * kTileW + lx, yk = (tk / tiles_x) * kTileH + ly;
+    bool hit = false;
+    for (int j = 0; j < kMarkPasses && !hit; ++j)
+      hit = __any_sync(kFull, pixel_starts(s, xk + (j & 1), yk + (j >> 1), height, width));
+    if (lane == k) any = hit;
+  }
+  if (t < tiles) marks[t] = any ? 1 : 0;
+}
+
+// Pass 1, bundles: marks[tile] = 1 where a ray of the tile is active at
+// start and takes a first step, else 0; a block for each tile.
 __global__ void __launch_bounds__(kThreads)
-touched4_kernel(const float* __restrict__ scal, const float* __restrict__ origins,
-                const float* __restrict__ dirs, const unsigned char* __restrict__ active,
-                unsigned char* __restrict__ marks, int height, int width) {
+touched4_rays_kernel(const float* __restrict__ scal, const float* __restrict__ origins,
+                     const float* __restrict__ dirs, const unsigned char* __restrict__ active,
+                     unsigned char* __restrict__ marks, int height, int width) {
   __shared__ float s[kScal];
   stage(s, scal, nullptr, nullptr, nullptr, nullptr);
   const int px = blockIdx.x * kTileW + (threadIdx.x % kTileW);
@@ -100,7 +186,7 @@ touched4_kernel(const float* __restrict__ scal, const float* __restrict__ origin
   bool act0 = false;
   if (px < width && py < height) {
     bool fl0;
-    const Ray r = pixel_ray<kPerRay>(s, origins, dirs, active, px, py, width, fl0);
+    const Ray r = pixel_ray<true>(s, origins, dirs, active, px, py, width, fl0);
     act0 = fl0 && leg_starts(r, s[3], step_cap_of(s));
   }
   const bool any = __syncthreads_or(act0);
@@ -187,12 +273,14 @@ extern "C" int touched4_launch(const float* scal, const float* origins, const fl
                                const unsigned char* active, unsigned char* marks, int height,
                                int width, cudaStream_t stream) {
   const dim3 grid = tile_grid(height, width);
-  if (origins)
-    touched4_kernel<true><<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, marks,
-                                                         height, width);
-  else
-    touched4_kernel<false><<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, marks,
-                                                          height, width);
+  if (origins) {
+    touched4_rays_kernel<<<grid, kThreads, 0, stream>>>(scal, origins, dirs, active, marks,
+                                                        height, width);
+  } else {
+    const int tiles = static_cast<int>(grid.x * grid.y);
+    touched4_camera_kernel<<<camera_mark_blocks(tiles), kMarkWarps * 32, 0, stream>>>(
+        scal, marks, height, width, static_cast<int>(grid.x), tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

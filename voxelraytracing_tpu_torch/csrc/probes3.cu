@@ -19,11 +19,17 @@
 // each computes its function once.
 //
 // What each probes on this card, and what bounds it:
-//   * gather_rows_smem: out[i, k, :] = tab[ids[i, k], :] for a block's 16
-//     ids, staged in shared memory (the TPU probe's SMEM scalars), one warp
-//     a row, 16-byte loads through the read-only path. Bytes: the rows,
-//     the ids and the output. (The TPU kernel k_smem does not trace as
-//     written, see the Python module; this is its intended function.)
+//   * gather_rows_smem: out[i, k, :] = tab[ids[i, k], :], a block for
+//     each i (the output's rows) and a warp for each four k: every lane
+//     loads the warp's four ids (the same words in every lane: one
+//     broadcast load each), then makes one 16-byte __ldg of each row (all
+//     in flight together) and one 16-byte store of each.
+//     No shared staging and no barrier: the TPU probe's SMEM scalars are
+//     the TPU's machinery, and staging them would cost a block two round
+//     trips with a barrier between. Bytes: the rows, the ids and the
+//     output, after the launch itself (an empty launch takes as long as
+//     they do). (The TPU kernel k_smem does not trace as written, see
+//     the Python module; this is its intended function.)
 //   * gather_rows_async: the same function as k_dma computes it, by the
 //     Tensor Memory Accelerator: lane k of a one-warp block copies row k
 //     (512 bytes) into shared memory with one cp.async.bulk that completes
@@ -157,13 +163,13 @@ namespace {
 __global__ void __launch_bounds__(128) gather_rows_smem_kernel(const int* __restrict__ ids,
                                                                const int4* __restrict__ tab,
                                                                int4* __restrict__ out) {
-  __shared__ int sid[kIds];
-  if (threadIdx.x < kIds) sid[threadIdx.x] = __ldg(ids + blockIdx.x * kIds + threadIdx.x);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = warp; k < kIds; k += 4)
-    out[(static_cast<size_t>(blockIdx.x) * kIds + k) * kRowVec + lane] =
-        __ldg(tab + static_cast<size_t>(sid[k]) * kRowVec + lane);
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * kIds + (threadIdx.x >> 5) * 4;
+  int4 v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = __ldg(tab + static_cast<size_t>(__ldg(ids + r0 + k)) * kRowVec + (threadIdx.x & 31));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[(r0 + k) * kRowVec + (threadIdx.x & 31)] = v[k];
 }
 
 // One block of kSumThreads: thread t < 64 loads v[t, 0]; the sum is taken

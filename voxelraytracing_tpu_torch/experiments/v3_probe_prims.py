@@ -62,9 +62,9 @@ def _gather_checks(ids, tab, name):
 
 def gather_rows_smem(ids, tab):
     """P1: ``tab`` i32[rows, 128] gathered by ``ids`` i32[nb, 16] ->
-    i32[nb, 16, 128]: ``gather_rows_smem_kernel``, one block of ids staged
-    in shared memory, one warp a row, on CUDA; :func:`gather_rows_ref` on
-    the CPU."""
+    i32[nb, 16, 128]: ``gather_rows_smem_kernel`` on CUDA, a block of
+    ids a block, a warp for each four rows (their ids broadcast to every
+    lane, no shared staging); :func:`gather_rows_ref` on the CPU."""
     dev = _gather_checks(ids, tab, "gather_rows_smem")
     if dev.type == "cpu":
         return gather_rows_ref(ids, tab)

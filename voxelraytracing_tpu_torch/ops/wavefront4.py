@@ -617,6 +617,18 @@ def _tile_marks(act0, height, width):
     return a.reshape(ty, TILE_H, tx, TILE_W).amax(dim=(1, 3))
 
 
+def start_flags(scal, origins=None, dirs=None, active=None, *, height,
+                width):
+    """bool[height * width]: whether each ray of a state-plane march takes
+    a first step (rays as in :func:`march_planes4_ref`)."""
+    sf = [float(x) for x in scal.detach().cpu().numpy().astype(np.float32)]
+    dev = scal.device if origins is None else origins.device
+    rays, fl0 = _start_rays(sf, *_pixels(height, width, dev), origins, dirs,
+                            active)
+    t_exit = _ray_consts(sf[3], *rays)[3]
+    return fl0 & _leg_starts(sf[3], _step_cap(sf), *rays, t_exit)
+
+
 def touched4_ref(scal, origins=None, dirs=None, active=None, *, height,
                  width):
     """Plain PyTorch version of the start marks of a state-plane march:
@@ -624,12 +636,8 @@ def touched4_ref(scal, origins=None, dirs=None, active=None, *, height,
     that takes a first step (JAX: the per-block ``any_active`` of
     ``_march_kernel4``, wavefront4.py:883-892). Rays as in
     :func:`march_planes4_ref`."""
-    sf = [float(x) for x in scal.detach().cpu().numpy().astype(np.float32)]
-    dev = scal.device if origins is None else origins.device
-    rays, fl0 = _start_rays(sf, *_pixels(height, width, dev), origins, dirs,
-                            active)
-    t_exit = _ray_consts(sf[3], *rays)[3]
-    return _tile_marks(fl0 & _leg_starts(sf[3], _step_cap(sf), *rays, t_exit),
+    return _tile_marks(start_flags(scal, origins, dirs, active,
+                                   height=height, width=width),
                        height, width)
 
 
@@ -798,10 +806,12 @@ def touched4(scal, origins=None, dirs=None, active=None, *, height, width):
     """Start marks of a state-plane march -> u8[ceil(height/8),
     ceil(width/16)].
 
-    On CUDA tensors: one launch of ``touched4_kernel`` in
-    ``csrc/planes4.cu``; on CPU tensors: the plain version
-    :func:`touched4_ref`. Any other device raises. Same arguments as
-    :func:`touched4_ref`."""
+    On CUDA tensors: one launch in ``csrc/planes4.cu``,
+    ``touched4_camera_kernel`` for camera rays (a representative ray a
+    tile first, then the tiles left open a warp each),
+    ``touched4_rays_kernel`` for bundles; on CPU tensors: the plain
+    version :func:`touched4_ref`. Any other device raises. Same arguments
+    as :func:`touched4_ref`."""
     dev = _device_of(scal, "touched4")
     if dev.type == "cpu":
         return touched4_ref(scal, origins, dirs, active, height=height,
