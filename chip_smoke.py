@@ -1,18 +1,20 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's paths on the demo worlds of bench.py and on a streamed
-strip of demo terrain, through the entry points a user calls
+Drives the port's paths on the demo worlds of bench.py, on a streamed
+strip of demo terrain and on config2/config3's preset world (device
+worldgen), through the entry points a user calls
 (``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
 ``trace_wavefront3``, ``WavefrontRenderer.render_packed`` and
 ``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``,
-``RenderGrid3Builder`` and the probe scripts' ``main``), after building the
-hand-written CUDA kernels from ``voxelraytracing_tpu_torch/csrc`` (one
-nvcc per source, all at once):
+``RenderGrid3Builder``, ``WorldGen.generate_chunks``, ``ServerWorld`` and
+the probe scripts' ``main``), after building the hand-written CUDA kernels
+from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all at once)
+and the port's native host library (``native/svo_core.cpp``, g++):
 
   1. the card's name and power limit (exits non-zero without a CUDA card);
-  2. build the kernels; print registers, shared memory and spills of each
-     ``__global__`` (the four ``march_fused4_kernel`` instantiations
-     among them);
+  2. build the kernels and the native library; print registers, shared
+     memory and spills of each ``__global__`` (the four
+     ``march_fused4_kernel`` instantiations among them);
   3. the 8-chunk world (256³ voxels), built straight onto the card;
   4. the fused primary frame at 1920x1080, bench camera + 48 orbit
      cameras: kernel vs plain PyTorch version on the card, flags and
@@ -163,7 +165,29 @@ nvcc per source, all at once):
      for bit; device ms of each kernel, its plain version and its
      yardstick library call, and its least time, beside the launch floor:
      the device ms of an empty kernel, timed as the probes are;
- 30. the script's total seconds.
+ 30. device worldgen: one 128-chunk batch of config2/3's preset window
+     (terra datapack, Continents, seed 20260816, 8^3 chunks around
+     ``find_land_near(0, 0)``, benchmarks/run.py:183-212) through
+     ``WorldGen.generate_chunks`` on the card and on the CPU: grids, the
+     aux maps (height, biome, peak, veg_prob) and the features exactly
+     equal; chunks/s on the card;
+ 31. the SVO build of that batch on the card (``build_chunk_svo_batch``,
+     ``ServerWorld.build_nodes``) vs the native ``dense_to_svo_batch``,
+     word for word; config4a's rebuild step (run.py:443-474: 128 chunks
+     through ``ServerWorld.generate_chunks`` + ``build_nodes``) in
+     chunks/s;
+ 32. the 512-chunk preset world (generated on the card in batches of 128,
+     features merged, tables built): the fused 1080p primary frame,
+     config2's 720p fused shadowed frame (and its split launches, as in
+     phase 7) and config3's 1080p one-bounce ``pt4`` frame, each kernel vs
+     its plain version exactly on the config camera + 3 orbit cameras;
+     320x180 card vs CPU at the bars of phases 5/8 and 13; launches on
+     the three paths, each counted from 0; ms/frame of each (static
+     camera, median of 5 windows);
+ 33. the native library built from the port's own copy and the streaming
+     builder took its row path (``sw_rows_build`` calls counted in the
+     phase 17 fly-through);
+ 34. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -383,13 +407,15 @@ def compare_on_card(rg, prep, lut, cams, phase):
     return worst / 255.0
 
 
-def compare_on_cpu(rg_cpu, rg, mats, v, phase, shadows=False):
+def compare_on_cpu(rg_cpu, rg, mats, v, phase, shadows=False, cams=None):
     """Kernel on the card vs the plain version on the CPU at 320x180; with
-    shadows the shadow bits (the split path's shadow-leg hits) too."""
+    shadows the shadow bits (the split path's shadow-leg hits) too.
+    ``cams`` replaces bench.py's cameras in a world of edge ``v``."""
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
-    static, orbit = bench_cams(v, 320, 180)
-    cams = [static] + orbit[::4]
+    if cams is None:
+        static, orbit = bench_cams(v, 320, 180)
+        cams = [static] + orbit[::4]
     hit_bad = vox_bad = sh_bad = fl_bad = pk_bad = 0
     within = total = shadowed = 0
     for cam in cams:
@@ -1538,14 +1564,17 @@ def phase_w80(strip, mats, lut, phase):
     """The 80-chunk fly-through, checked: launches, kernel vs plain every
     8th frame, then the CPU builder and card vs CPU, and the other sparse
     kernels vs their plain versions."""
+    from voxelraytracing_tpu_torch.core import native
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 
     w = 80
     counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4)
     for c in counters:
         c.launches = 0
+    native.sw_rows_build.calls = 0
     b, s = stream_window(strip, w, lut, check_every=CHECK_EVERY)
     counts = [c.launches for c in counters]
+    rows_calls = native.sw_rows_build.calls
     prep = b.prepared()
     gs = t4._world_dims(prep.sw_cont, prep.wmeta_pad, prep.ns)[2]
     say(phase, f"W={w} sparse (nw={b.nw}, gs={gs}): {N_PREFILL} columns "
@@ -1601,7 +1630,7 @@ def phase_w80(strip, mats, lut, phase):
         f"{plain_bad}")
     check(plain_bad == 0, "a sparse kernel disagrees at W=80")
     return b, dict(launches=counts[0], err=max(s["worst"] / 255.0, worst_f),
-                   err_planes=worst_p)
+                   err_planes=worst_p, rows_calls=rows_calls)
 
 
 def time_streaming_step(strip, w, sparse):
@@ -2543,6 +2572,285 @@ def phase_probes(phase):
     return entries
 
 
+# ------------------------------------------------------------ the preset world
+
+# config2/config3's world (benchmarks/run.py:183-212, :283-307): the terra
+# datapack's first preset (Continents), this seed, an 8^3-chunk window
+# around find_land_near(0, 0), generated in device batches of 128
+# (run.py:268), features merged
+PRESET_SEED = 20260816
+PRESET_W = 8
+GEN_BATCH = 128
+CONFIG4A_SEED = 1      # config4a's generator (run.py:455)
+N_ORBIT_PRESET = 3
+
+
+def preset_packs():
+    from voxelraytracing_tpu_torch.resources.packs import (
+        Resources, builtin_respack_path)
+
+    res = Resources.load_from(builtin_respack_path())
+    return res.datapacks["terra"], res.stylepacks["terra"]
+
+
+def preset_window(gen):
+    """The window of benchmarks/run.py:_preset_grids_host: chunk positions
+    in its x-major order, the min chunk and the camera's eye."""
+    x, h, z = gen.find_land_near(0, 0) or (0, 80, 0)
+    mn = (x // 32 - PRESET_W // 2, 0, z // 32 - PRESET_W // 2)
+    r = range(PRESET_W)
+    pos = [(mn[0] + i, j, mn[2] + k) for i in r for j in r for k in r]
+    return pos, mn, (float(x + 20), float(h + 30), float(z + 20))
+
+
+def preset_cams(mn, eye, size, n_orbit=N_ORBIT_PRESET):
+    """config2/3's camera (run.py:313, :360) and an orbit around the
+    window's centre, 30 degrees down, at 0.72 of its height."""
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+
+    v = PRESET_W * 32
+    c = np.asarray(mn, np.float64) * 32 + v * 0.5
+    cams = [CamData.create((30.0, 45.0, 0.0), eye, 70.0, size)]
+    for i in range(n_orbit):
+        a = 360.0 * (i + 0.5) / n_orbit
+        e = (c[0] + v * 0.35 * np.cos(np.deg2rad(a)), mn[1] * 32 + v * 0.72,
+             c[2] + v * 0.35 * np.sin(np.deg2rad(a)))
+        cams.append(CamData.create((30.0, (a + 180.0) % 360.0, 0.0), e, 70.0,
+                                   size))
+    return cams
+
+
+def same_features(a, b):
+    """Two generate_chunks feature lists hold the same voxel clouds."""
+    return ([len(f) for f in a] == [len(f) for f in b]
+            and all(x.voxels == y.voxels for fa, fb in zip(a, b)
+                    for x, y in zip(fa, fb)))
+
+
+def host_s(fn, n=WINDOWS):
+    """Median host seconds of ``fn()`` (which ends in a device sync)."""
+    fn()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def phase_worldgen(phase):
+    """The preset window generated on the card in batches of 128; the
+    batch with the most features also on the CPU: grids, every aux map
+    and the features equal; chunks/s on the card. Returns the card's
+    generator, the packs, the window, that batch, its card grids and the
+    card's ``generate_chunks`` results of every batch."""
+    from voxelraytracing_tpu_torch.worldgen import WorldGen
+
+    dp, sp = preset_packs()
+    gen = WorldGen.from_datapack(dp, PRESET_SEED)
+    cpu = WorldGen.from_datapack(dp, PRESET_SEED, device="cpu")
+    pos, mn, eye = preset_window(gen)
+    land = (gen.find_land_near(0, 0), cpu.find_land_near(0, 0))
+    batches = [pos[o:o + GEN_BATCH] for o in range(0, len(pos), GEN_BATCH)]
+    out = [gen.generate_chunks(b) for b in batches]
+    k = max(range(len(out)), key=lambda i: sum(len(f) for f in out[i][1]))
+    batch, (grids, feats) = batches[k], out[k]
+    cgrids, cfeats = cpu.generate_chunks(batch)
+    _, aux = gen.terrain.generate_grids(batch)
+    _, caux = cpu.terrain.generate_grids(batch)
+    bad = {k: int((aux[k].cpu() != caux[k]).sum()) for k in caux}
+    bad["grids"] = int((grids.cpu() != cgrids).sum())
+    feats_ok = same_features(feats, cfeats)
+    n_feats = sum(len(f) for f in feats)
+    t_gen = host_s(lambda: gen.generate_chunks(batch))
+    t_dev = median_windows(lambda i: gen.terrain.generate_grids(batch), 4)
+    say(phase, f"preset window (terra, Continents, seed {PRESET_SEED}, land "
+        f"{land[0]}, min chunk {mn}): batch {k} of {len(batch)} chunks, card vs "
+        f"CPU differing grid voxels and aux map entries {bad}, features "
+        f"equal {feats_ok} ({n_feats}); generate_chunks on the card "
+        f"{t_gen * 1e3:.2f} ms = {len(batch) / t_gen:.1f} chunks/s (host "
+        f"features included), the terrain pass alone {t_dev:.3f} ms = "
+        f"{len(batch) / t_dev * 1e3:.1f} chunks/s (CUDA events)")
+    check(land[0] == land[1], "find_land_near differs between card and CPU")
+    check(not any(bad.values()) and feats_ok,
+          "worldgen on the card differs from the CPU")
+    return gen, dp, sp, pos, mn, eye, batch, grids, out
+
+
+def phase_svo_build(gen, dp, batch, grids, phase):
+    """The batch's SVO build on the card (build_chunk_svo_batch, and
+    ServerWorld.build_nodes after its generate_chunks) against the port's
+    native dense_to_svo_batch, word for word; config4a's rebuild step
+    (run.py:443-474: 16x8 chunks at y=1 of a seed-1 generator, a new
+    offset each step) as chunks/s of ServerWorld.generate_chunks +
+    build_nodes on the card."""
+    from voxelraytracing_tpu_torch.core import native
+    from voxelraytracing_tpu_torch.ops.svo_build import build_chunk_svo_batch
+    from voxelraytracing_tpu_torch.server import ServerWorld
+    from voxelraytracing_tpu_torch.worldgen import WorldGen
+
+    nodes, counts = build_chunk_svo_batch(grids)
+    host = grids.cpu().numpy()
+    nn, nc = native.dense_to_svo_batch(host)
+    bad = words_differ(nodes.cpu(), torch.from_numpy(nn)) + int(
+        (counts.cpu().numpy() != nc).sum())
+    sw = ServerWorld(gen)
+    sw.generate_chunks(batch)
+    built = sw.build_nodes(batch)
+    bad_sw = 0  # chunks whose trimmed uint16 nodes differ
+    for i, p in enumerate(batch):
+        want = nn[i, :nc[i]].astype(np.uint16)
+        bad_sw += int(built[p].shape != want.shape
+                      or bool((built[p] != want).any()))
+    t_build = median_windows(lambda i: build_chunk_svo_batch(grids), 4)
+
+    gen1 = WorldGen.from_datapack(dp, CONFIG4A_SEED)
+    off = [0]
+
+    def step():
+        off[0] += 1
+        pos = [(off[0] + i, 1, j) for i in range(16) for j in range(8)]
+        w = ServerWorld(gen1)
+        w.generate_chunks(pos)
+        w.build_nodes(pos)
+
+    t_step = host_s(step)
+    say(phase, f"SVO build of the batch on the card vs the native builder: "
+        f"differing node words and counts {bad} (nodes {int(counts.sum())}, "
+        f"{int(counts.max())} the most in a chunk), ServerWorld.build_nodes "
+        f"{bad_sw}; build_chunk_svo_batch {t_build:.3f} ms = "
+        f"{len(batch) / t_build * 1e3:.1f} chunks/s (CUDA events); config4a's "
+        f"rebuild step (generate_chunks + build_nodes, 128 chunks) "
+        f"{t_step * 1e3:.2f} ms = {GEN_BATCH / t_step:.1f} chunks/s (host "
+        f"clock)")
+    check(bad == 0 and bad_sw == 0,
+          "the SVO build on the card differs from the native builder")
+
+
+def preset_world(generated, dp, sp, pos, mn):
+    """The 512-chunk window from its batches' ``generate_chunks`` results,
+    features stamped as benchmarks/run.py:_preset_grids_host does, built
+    into RenderGrid3 tables on the card and on the CPU."""
+    from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
+
+    g = np.concatenate([grids.cpu().numpy() for grids, _ in generated])
+    feats = [f for _, fb in generated for f in fb]
+    idx = {p: i for i, p in enumerate(pos)}
+    for fl in feats:
+        for f in fl:
+            for (vx, vy, vz), v in f.voxels.items():
+                i = idx.get((vx // 32, vy // 32, vz // 32))
+                if i is not None:
+                    g[i, vx % 32, vy % 32, vz % 32] = v
+    w = PRESET_W
+    r = range(w)
+    cells = np.asarray([i + j * w + k * w * w for i in r for j in r for k in r],
+                       np.int32)
+    mats = sp.material_table(dp.voxels)
+    wmin = np.asarray(mn, np.int32) * 32
+    rg = build_render_grid3_host(g, cells, wmin, w, mats)
+    rg_cpu = build_render_grid3_host(g, cells, wmin, w, mats, device="cpu")
+    return rg, rg_cpu, mats, sum(len(f) for f in feats)
+
+
+def phase_preset_frames(generated, dp, sp, pos, mn, eye, smi, phase):
+    """config2/3's preset world on the card: the fused 1080p primary frame,
+    config2's 720p fused shadowed frame and config3's 1080p one-bounce
+    path_trace_fused4 frame. Each kernel vs its plain version on the card,
+    exactly; card vs CPU at 320x180 (the bars of phases 5/8 and 13);
+    launches on the three paths, each counted from 0; ms/frame beside
+    ``smi``, the card's name and power limit."""
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
+
+    t0 = time.perf_counter()
+    rg, rg_cpu, mats, n_feats = preset_world(generated, dp, sp, pos, mn)
+    prep = t4.prepare_grid4(rg)
+    torch.cuda.synchronize()
+    lut = color_lut_rows(mats.color).to(rg.sw_solid.device)
+    say(phase, f"preset world: {len(pos)} chunks generated on the card in "
+        f"batches of {GEN_BATCH} (phase 30), {n_feats} features merged, "
+        f"tables built on the card and on the CPU, "
+        f"{time.perf_counter() - t0:.1f} s; sw_cont "
+        f"{prep.sw_cont.numel() * 4 / 1e6:.1f} MB, palettes ok "
+        f"{rg.palettes_ok}")
+    c1080 = preset_cams(mn, eye, (WIDTH, HEIGHT))
+    c720 = preset_cams(mn, eye, SIZES[1])
+    compare_on_card(rg, prep, lut, c1080, phase)
+    compare_shadows(rg, prep, lut, c720, phase)
+    pt_bad = 0
+    for cam in c1080:
+        args, (h, w) = pt_args(rg, mats, cam, prep)
+        kw = dict(height=h, width=w, bounces=PT_KW["bounces"],
+                  samples=PT_KW["samples"])
+        pt_bad += words_differ(p4.pt4(*args, **kw), p4.pt4_ref(*args, **kw))
+    say(phase, f"{len(c1080)} cameras at {WIDTH}x{HEIGHT}, config3's "
+        f"one-bounce frame: pt4 vs plain differing words {pt_bad}")
+    check(pt_bad == 0, "pt4 disagrees with its plain version on the preset "
+          "world")
+
+    small = preset_cams(mn, eye, (320, 180))
+    compare_on_cpu(rg_cpu, rg, mats, None, phase, cams=small)
+    compare_on_cpu(rg_cpu, rg, mats, None, phase, shadows=True, cams=small)
+    worst = 1.0
+    for cam in small:
+        a = pt_frame(p4.path_trace_fused4, rg, mats, cam).cpu()
+        b = pt_frame(p4.path_trace_fused4, rg_cpu, mats, cam)
+        worst = min(worst, pt_bar(a, b))
+    say(phase, f"{len(small)} one-bounce path_trace_fused4 frames at "
+        f"320x180, card vs CPU: worst share of pixels within 2/255 "
+        f"{worst:.6f}")
+    check(worst >= PT_BAR, "the preset path-traced frame misses the bar "
+          "against the CPU")
+
+    paths = {
+        "primary 1080p": lambda cam=c1080[0]: t4.render_frame4(
+            rg, cam, lut, prepared=prep, **BENCH_KW),
+        "config2 720p shadowed": lambda cam=c720[0]: t4.render_frame4(
+            rg, cam, lut, prepared=prep, shadows=True, sun_pos=sun_of(cam),
+            **BENCH_KW),
+        "config3 1080p path-traced": lambda cam=c1080[0]: pt_frame(
+            p4.path_trace_fused4, rg, mats, cam, prepared=prep),
+    }
+    counters = (t4.march_fused4, t4.march_planes4, t4.touched4, t4.shade4,
+                p4.pt4)
+    want = {"primary 1080p": [3, 0, 0, 0, 0],
+            "config2 720p shadowed": [3, 0, 0, 0, 0],
+            "config3 1080p path-traced": [0, 0, 0, 0, 3]}
+    counts, ms = {}, {}
+    for name, fn in paths.items():
+        for c in counters:
+            c.launches = 0
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        counts[name] = [c.launches for c in counters]
+        ms[name] = median_windows(lambda i: fn(), 8)
+    for name in paths:
+        say(phase, f"{name} x3: launches fused/planes/touched/shade/pt4 "
+            f"{counts[name]}; static camera {ms[name]:.4f} ms/frame (median "
+            f"of {WINDOWS} windows, CUDA events; {smi})")
+    check(counts == want, "a preset frame did not run its kernel once a frame")
+    return ms
+
+
+def phase_native(calls, phase):
+    """The port's native library built from its own copy of
+    ``svo_core.cpp``, and the streaming builder took its row path
+    (``sw_rows_build``) in the fly-through (phase 17), not the NumPy
+    twin."""
+    from voxelraytracing_tpu_torch.core import native
+
+    say(phase, f"native library {native.library_path()} built "
+        f"{native.available()} (from {native.SOURCE}); sw_rows_build calls "
+        f"in the W=80 fly-through {calls}")
+    check(native.available(), "the port's native library did not build")
+    check(calls >= N_STREAM, "the streaming builder did not take the native "
+          "row path")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2550,6 +2858,7 @@ def main():
         return 2
     t_start = time.perf_counter()
     from voxelraytracing_tpu_torch import _build
+    from voxelraytracing_tpu_torch.core import native
     from voxelraytracing_tpu_torch.ops.materials import make_material_table
     from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
     from voxelraytracing_tpu_torch.ops.wavefront4 import prepare_grid4
@@ -2558,15 +2867,19 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    say(1, f"nvidia-smi: {smi.splitlines()[0] if smi else 'unavailable'}")
+    card = smi.splitlines()[0] if smi else "unavailable"
+    say(1, f"nvidia-smi: {card}")
     say(1, f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+    with ThreadPoolExecutor(len(_build.KERNELS) + 1) as pool:
+        lib = pool.submit(native.build)
         list(pool.map(_build.build, _build.KERNELS))
     say(2, f"built {', '.join(_build.KERNELS)} in "
-        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel), "
+        f"the native library {lib.result()} (g++, beside them)")
+    check(native.available(), "the port's native library does not load")
     for name in _build.KERNELS:
         _build.load(name)
         for ln in ptxas_report(name):
@@ -2655,6 +2968,16 @@ def main():
 
     # the primitive probes at the JAX scripts' shapes
     probe_entries = phase_probes(29)
+
+    # config2/config3's preset world: device worldgen, the SVO build and
+    # the three frames on it; the native library
+    t_preset = time.perf_counter()
+    gen, dp, sp, pos, mn, eye, batch, grids, generated = phase_worldgen(30)
+    phase_svo_build(gen, dp, batch, grids, 31)
+    phase_preset_frames(generated, dp, sp, pos, mn, eye, card, 32)
+    phase_native(w80["rows_calls"], 33)
+    say(33, f"phases 30-33 took {time.perf_counter() - t_preset:.1f} s")
+    torch.cuda.empty_cache()
 
     px = WIDTH * HEIGHT
     b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,
@@ -2777,7 +3100,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": line}))
-    say(30, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(34, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

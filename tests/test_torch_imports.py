@@ -43,6 +43,25 @@ def test_every_module_imports_without_jax():
             "voxelraytracing_tpu_torch.world.render_grid",
             "voxelraytracing_tpu_torch.experiments.v3_probe_prims",
             "voxelraytracing_tpu_torch.experiments.v3_probe_subgather",
+            # the host core and device worldgen
+            "voxelraytracing_tpu_torch.core.nodes",
+            "voxelraytracing_tpu_torch.core.coords",
+            "voxelraytracing_tpu_torch.core.math",
+            "voxelraytracing_tpu_torch.core.svo",
+            "voxelraytracing_tpu_torch.core.native",
+            "voxelraytracing_tpu_torch.utils.log",
+            "voxelraytracing_tpu_torch.resources.ron",
+            "voxelraytracing_tpu_torch.resources.packs",
+            "voxelraytracing_tpu_torch.ops.noise",
+            "voxelraytracing_tpu_torch.ops.svo_build",
+            "voxelraytracing_tpu_torch.worldgen",
+            "voxelraytracing_tpu_torch.worldgen.fields",
+            "voxelraytracing_tpu_torch.worldgen.terrain",
+            "voxelraytracing_tpu_torch.worldgen.features",
+            "voxelraytracing_tpu_torch.world.assemble",
+            "voxelraytracing_tpu_torch.world.demo",
+            "voxelraytracing_tpu_torch.server",
+            "voxelraytracing_tpu_torch.server.world",
             } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -60,6 +79,40 @@ def test_every_module_imports_without_jax():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(from|import)\s+(jax|voxelraytracing_tpu)\b",
                          smoke, re.M)
+
+
+def test_native_library_is_the_ports_own():
+    """The port builds its own copy of ``svo_core.cpp`` (kept in its
+    package) into ``build/native/``, a directory ``.gitignore`` lists,
+    outside the JAX package's ``native/``; importing the port builds
+    nothing; worldgen and the SVO build default to the card."""
+    import inspect
+
+    from voxelraytracing_tpu_torch.core import native
+    from voxelraytracing_tpu_torch.ops import svo_build
+    from voxelraytracing_tpu_torch.world import demo
+    from voxelraytracing_tpu_torch.worldgen import WorldGen, terrain
+
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from voxelraytracing_tpu_torch.core import native\n"
+        "import voxelraytracing_tpu_torch.world.render_grid\n"
+        "assert native._lib is None and not native._tried\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    src = native.SOURCE.resolve()
+    lib = native.library_path().resolve()
+    assert src == ROOT / "voxelraytracing_tpu_torch" / "native" / "svo_core.cpp"
+    assert lib.parent == ROOT / "build" / "native"
+    assert ROOT / "native" not in lib.parents
+    assert "build/native/" in (ROOT / ".gitignore").read_text().split()
+    for fn in (svo_build.build_chunk_svo_batch, svo_build.build_chunk_svo,
+               demo.demo_chunk_grids, WorldGen, WorldGen.from_datapack,
+               terrain.TerrainGen):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 def test_kernel_build_is_lazy_and_ieee():

@@ -1,1 +1,2 @@
-"""World-format constants of the port."""
+"""Core formats and host geometry of the port: SVO nodes and spec,
+coords, math, the native library, world-format constants."""

@@ -1,5 +1,5 @@
 """Device compute of the port: camera, tables, the v2, v3 and v4 marches,
-the sky, the path tracers.
+the sky, the path tracers, noise and the SVO build.
 
 The rendering entry points are re-exported here, as the JAX package's
 ``ops`` does for those of its entry points that are ported.
@@ -9,6 +9,7 @@ from .camera import CamData, generate_rays
 from .pathtrace3 import path_trace3, path_trace4
 from .pathtrace4 import path_trace_fused4
 from .sky import ray_sky
+from .svo_build import build_chunk_svo, build_chunk_svo_batch
 from .wavefront import RenderGrid, build_render_grid_host
 from .wavefront2 import trace_wavefront2
 from .wavefront3 import (
@@ -30,6 +31,8 @@ from .wavefront4 import (
 __all__ = [
     "CamData",
     "generate_rays",
+    "build_chunk_svo",
+    "build_chunk_svo_batch",
     "RenderGrid",
     "build_render_grid_host",
     "build_render_grid3_host",

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core import native
 from ..core.constants import CHUNK_SIZE
 from .camera import sqrt_rn
 from .wavefront import (
@@ -126,12 +127,15 @@ def build_sw_palettes(vol_rows, solid_rows, to_pack):
     n_sw = vol_rows.shape[0]
     vr = vol_rows.astype(np.int64)
     # per-(row, id) solid counts (render ids are < 256); non-solid voxels
-    # land in each row's id-0 column, which is dropped (id 0 = air). One
-    # flat bincount with int64 keys: the JAX package's own fallback for
-    # its native row histogram, and equal to it.
+    # land in each row's id-0 column, which is dropped (id 0 = air). The
+    # native row histogram when the library builds (as in the JAX
+    # builder), else its twin: one flat bincount with int64 keys.
     ids = np.where(solid_rows, vr, 0)
-    flat = (np.arange(n_sw, dtype=np.int64)[:, None] * 256 + ids).ravel()
-    cnt = np.bincount(flat, minlength=n_sw * 256).reshape(n_sw, 256)
+    if native.available():
+        cnt = native.hist256_u8(ids.astype(np.uint8))
+    else:
+        flat = (np.arange(n_sw, dtype=np.int64)[:, None] * 256 + ids).ravel()
+        cnt = np.bincount(flat, minlength=n_sw * 256).reshape(n_sw, 256)
     cnt[:, 0] = 0
     present = cnt > 0
     n_ids = present.sum(axis=1)

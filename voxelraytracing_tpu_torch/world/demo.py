@@ -1,15 +1,20 @@
-"""Self-contained procedural demo worlds (host build).
+"""Self-contained procedural demo worlds.
 
-Port of the host half of ``voxelraytracing_tpu/world/demo.py``: Perlin
-column heights -> layered stone/earth/grass columns with sea-level water,
-as a batch of dense ``[32³]`` chunk grids. The benchmark world and the
-port's tests are built from it.
+Port of ``voxelraytracing_tpu/world/demo.py``: Perlin column heights ->
+layered stone/earth/grass columns with sea-level water, as a batch of
+dense ``[32³]`` chunk grids, built on the device (``demo_chunk_grids``)
+or on the host (``demo_chunk_grids_host``, its NumPy twin). The
+benchmark world and the port's tests are built from them.
+``make_demo_world`` needs the SVO ``WorldSlice``, which the port does not
+have yet.
 """
 
 import numpy as np
+import torch
 
 from ..core.constants import CHUNK_SIZE
 from ..ops import noise
+from .assemble import grid_cells
 
 # Demo voxel ids (match the bundled respack's first entries).
 AIR, STONE, EARTH, GRASS, WATER = 0, 1, 2, 3, 4
@@ -28,8 +33,42 @@ def demo_materials(n_voxels=256):
     return make_material_table(n_voxels, DEMO_STYLES)
 
 
+def demo_chunk_grids(perm, min_chunk, size_in_chunks, height_scale,
+                     sea_level, device="cuda"):
+    """Dense voxel grids for every chunk of a W³ window, on ``device``
+    (the card unless the caller asks for the CPU).
+
+    Returns ``(grids int32[W³, 32, 32, 32], cells int32[W³])``.
+    """
+    w = size_in_chunks
+    i32, f32 = torch.int32, torch.float32
+    cells, offs = grid_cells(w, device=device)
+    corners = (torch.as_tensor(np.asarray(min_chunk), dtype=i32,
+                               device=device) + offs) * CHUNK_SIZE  # [B,3]
+
+    lx = torch.arange(CHUNK_SIZE, dtype=i32, device=device)
+    gx = corners[:, 0, None] + lx[None, :]  # [B,32]
+    gz = corners[:, 2, None] + lx[None, :]
+    # Column world positions [B,32,32,2] -> heights [B,32,32]
+    pos = torch.stack(torch.broadcast_tensors(
+        gx[:, :, None].to(f32), gz[:, None, :].to(f32)), dim=-1)
+    scale = torch.tensor(height_scale, dtype=f32, device=device)
+    h = noise.sample01(perm, pos * 0.01) * scale  # [B, 32(x), 32(z)]
+    h = torch.floor(h).to(i32)
+
+    gy = corners[:, 1, None] + lx[None, :]  # [B, 32] global y per layer
+    y = gy[:, None, :, None]  # [B, 1, 32(y), 1]
+    hh = h[:, :, None, :]  # [B, 32(x), 1, 32(z)]
+
+    grid = torch.where(y < hh - 3, STONE, AIR)
+    grid = torch.where((y >= hh - 3) & (y < hh - 1), EARTH, grid)
+    grid = torch.where((y >= hh - 1) & (y < hh), GRASS, grid)
+    grid = torch.where((grid == AIR) & (y < int(sea_level)), WATER, grid)
+    return grid.to(i32), cells
+
+
 def demo_chunk_grids_host(perm, min_chunk, size_in_chunks, height_scale, sea_level):
-    """Dense voxel grids for every chunk of a W³ window.
+    """NumPy twin of :func:`demo_chunk_grids`.
 
     Returns ``(grids int32[W³, 32, 32, 32], cells int32[W³])``; grid axes
     are (x, y, z) and cell ``c`` is chunk ``(c % W, c // W % W, c // W²)``.

@@ -13,8 +13,9 @@ moves a few KB. ``prepared()`` keeps the v4 packed tables the same way,
 dense (:class:`~..ops.wavefront4.PreparedGrid4`) or sparse
 (:class:`~..ops.wavefront4.PreparedGrid4Sparse`: content rows only for
 non-jump subwindows, all-solid rows shared), row for row equal to the JAX
-builder's tables. The JAX package's native row builder (``sw_rows_build``)
-is host C++, not a TPU kernel; this port runs its NumPy twin.
+builder's tables. A chunk's rows come from the port's native row builder
+(``core/native.sw_rows_build``, host C++) when it builds, as in the JAX
+builder, else from its NumPy twin ``chunk_batch_sw_data``.
 """
 
 import logging
@@ -22,6 +23,7 @@ import logging
 import numpy as np
 import torch
 
+from ..core import native
 from ..core.constants import CHUNK_SIZE
 from ..ops.wavefront import render_id_maps
 from ..ops.wavefront3 import (
@@ -79,8 +81,20 @@ def _pack_rows_np(solid, liq, pid, meta):
     return rows
 
 
+def chunk_sw_rows(m):
+    """[B,32,32,32] per-voxel array -> [B*8, 4096] subwindow rows,
+    chunk-major with local subwindow index ``sz*4 + sy*2 + sx``, each row
+    in (z, y, x) voxel order."""
+    b = m.shape[0]
+    t = m.reshape(b, 2, SW, 2, SW, 2, SW)        # (B, X,xl, Y,yl, Z,zl)
+    t = t.transpose(0, 5, 3, 1, 6, 4, 2)         # (B, Z,Y,X, zl,yl,xl)
+    return t.reshape(b * 8, SW * SW * SW)
+
+
 def chunk_batch_sw_data(rgrids, n_liquid, to_pack):
-    """Per-subwindow data of a batch of chunks.
+    """Per-subwindow data of a batch of chunks: the NumPy twin of the
+    native ``core/native.sw_rows_build`` (which the builder takes when the
+    native library is available, as the JAX builder does).
 
     ``rgrids``: int array [B,32,32,32] of *render* ids (see
     ``render_id_maps``). Returns a dict of arrays over the B*8 subwindows,
@@ -91,11 +105,7 @@ def chunk_batch_sw_data(rgrids, n_liquid, to_pack):
     """
     rg = np.asarray(rgrids)
     b = rg.shape[0]
-
-    def sw_rows(m):
-        t = m.reshape(b, 2, SW, 2, SW, 2, SW)        # (B, X,xl, Y,yl, Z,zl)
-        t = t.transpose(0, 5, 3, 1, 6, 4, 2)         # (B, Z,Y,X, zl,yl,xl)
-        return t.reshape(b * 8, SW * SW * SW)
+    sw_rows = chunk_sw_rows
 
     solid = rg > n_liquid
     liq = (rg >= 1) & (rg <= n_liquid)
@@ -230,7 +240,14 @@ class RenderGrid3Builder:
         if not len(cells):
             return
         rg = self.to_render[np.asarray(grids_packids, np.int64)]
-        data = chunk_batch_sw_data(rg, self.n_liquid, self.to_pack)
+        if native.available():
+            # one native pass over the rows: bit packing, brick metas,
+            # palettes and pid planes (world/render_grid.py:133-139 of the
+            # JAX package; equal to the twin, tests/test_torch_native.py)
+            data = native.sw_rows_build(chunk_sw_rows(rg), self.n_liquid,
+                                        self.to_pack)
+        else:
+            data = chunk_batch_sw_data(rg, self.n_liquid, self.to_pack)
         if not data["palettes_ok"]:
             self.palettes_ok = False
             _log.warning(
