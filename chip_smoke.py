@@ -6,8 +6,10 @@ worldgen), through the entry points a user calls
 (``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
 ``trace_wavefront3``, ``WavefrontRenderer.render_packed`` and
 ``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``,
-``RenderGrid3Builder``, ``WorldGen.generate_chunks``, ``ServerWorld`` and
-the probe scripts' ``main``), after building the hand-written CUDA kernels
+``RenderGrid3Builder``, ``WorldGen.generate_chunks``, ``ServerWorld``, the
+probe scripts' ``main``, the SVO tracer ``trace_rays``, ``RayTracer``,
+``PathTracer``, ``build_render_grid`` and a served world through
+``ServerState`` and ``GameState``), after building the hand-written CUDA kernels
 from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all at once)
 and the port's native host library (``native/svo_core.cpp``, g++):
 
@@ -187,7 +189,44 @@ and the port's native host library (``native/svo_core.cpp``, g++):
  33. the native library built from the port's own copy and the streaming
      builder took its row path (``sw_rows_build`` calls counted in the
      phase 17 fly-through);
- 34. the script's total seconds.
+ 34. the SVO worlds: ``make_demo_world(7, 8)`` on the card and on the CPU,
+     nodes and roots word for word; the 512-chunk preset world of phase 32
+     through ``assemble_world_slice`` (fixed slots, SVOs built on the card)
+     and through ``build_world_slice`` (the host pool): the pools differ,
+     their 1080p ``trace_rays`` results are equal, and ``packed()`` traces
+     equal to the widened pool;
+ 35. the SVO tracer against the v4 kernels: ``trace_rays`` and
+     ``trace_wavefront4_rays`` (``touched4`` + ``march_planes4``, counted)
+     on the same ``generate_rays`` bundle at 1080p, on the demo and preset
+     worlds at their camera and two orbit cameras: hit masks, and voxel
+     ids on common hits, at most 0.2% apart (tools/tpu_correctness.py:188's
+     hit bar), the counts printed;
+ 36. 320x180 on the demo world, card vs CPU: ``trace_rays`` (hit, voxel,
+     normal, steps exact, the largest position and water gap printed and
+     held to 1e-3), ``RayTracer`` plain, shadowed and as the step heatmap
+     with each ``composite_crosshair`` style (the bar of phases 5/8), the
+     ``PathTracer`` with 3 bounces and 1 sample (the PT bar);
+ 37. SVO frame times beside the card's name and power limit: ``RayTracer``
+     at 1080p on the demo and preset worlds, plain and shadowed (median of
+     5, CUDA events), the ``PathTracer`` at 1080p (3 bounces, 1 sample,
+     median of 3), config1's frame (benchmarks/run.py:74-98) in Mrays/s,
+     and the device's busy share of a plain ``RayTracer`` frame
+     (torch.profiler);
+ 38. the v1 device builder: ``build_render_grid`` on the card equals
+     ``build_render_grid_host`` word for word on the 8-chunk demo world,
+     and the v2 frame drawn from its tables equals the one from the host
+     tables bit for bit;
+ 39. a served world: the port's ``ServerState`` on localhost in this
+     process (terra, Continents, seed 20260816, chunk generation and
+     ``build_nodes`` on the card, its ticks in a thread whose exceptions
+     fail the run); a ``GameState`` with a ``ClientWorld`` of window 8
+     streams until its 512 chunks are populated (chunks/s); a
+     ``WorldSlice`` of the client's pool and ``chunk_roots()`` draws a
+     1080p ``RayTracer`` frame equal bit for bit to one of
+     ``build_world_slice`` of the server's nodes; a second client streams
+     the window, the first one's ``set_voxel`` echoes to it, and after the
+     edit both clients' frames equal the server's;
+ 40. the script's total seconds.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -2728,25 +2767,35 @@ def phase_svo_build(gen, dp, batch, grids, phase):
           "the SVO build on the card differs from the native builder")
 
 
+def preset_grids(generated, pos):
+    """The 512-chunk window's grids from its batches' ``generate_chunks``
+    results, features stamped as benchmarks/run.py:_preset_grids_host does,
+    and their window cells."""
+    g = np.concatenate([grids.cpu().numpy() for grids, _ in generated])
+    idx = {p: i for i, p in enumerate(pos)}
+    for _, fb in generated:
+        for fl in fb:
+            for f in fl:
+                for (vx, vy, vz), v in f.voxels.items():
+                    i = idx.get((vx // 32, vy // 32, vz // 32))
+                    if i is not None:
+                        g[i, vx % 32, vy % 32, vz % 32] = v
+    w = PRESET_W
+    r = range(w)
+    cells = np.asarray([i + j * w + k * w * w for i in r for j in r for k in r],
+                       np.int32)
+    return g, cells
+
+
 def preset_world(generated, dp, sp, pos, mn):
     """The 512-chunk window from its batches' ``generate_chunks`` results,
     features stamped as benchmarks/run.py:_preset_grids_host does, built
     into RenderGrid3 tables on the card and on the CPU."""
     from voxelraytracing_tpu_torch.ops.wavefront3 import build_render_grid3_host
 
-    g = np.concatenate([grids.cpu().numpy() for grids, _ in generated])
+    g, cells = preset_grids(generated, pos)
     feats = [f for _, fb in generated for f in fb]
-    idx = {p: i for i, p in enumerate(pos)}
-    for fl in feats:
-        for f in fl:
-            for (vx, vy, vz), v in f.voxels.items():
-                i = idx.get((vx // 32, vy // 32, vz // 32))
-                if i is not None:
-                    g[i, vx % 32, vy % 32, vz % 32] = v
     w = PRESET_W
-    r = range(w)
-    cells = np.asarray([i + j * w + k * w * w for i in r for j in r for k in r],
-                       np.int32)
     mats = sp.material_table(dp.voxels)
     wmin = np.asarray(mn, np.int32) * 32
     rg = build_render_grid3_host(g, cells, wmin, w, mats)
@@ -2833,7 +2882,7 @@ def phase_preset_frames(generated, dp, sp, pos, mn, eye, smi, phase):
             f"{counts[name]}; static camera {ms[name]:.4f} ms/frame (median "
             f"of {WINDOWS} windows, CUDA events; {smi})")
     check(counts == want, "a preset frame did not run its kernel once a frame")
-    return ms
+    return rg, mats
 
 
 def phase_native(calls, phase):
@@ -2849,6 +2898,512 @@ def phase_native(calls, phase):
     check(native.available(), "the port's native library did not build")
     check(calls >= N_STREAM, "the streaming builder did not take the native "
           "row path")
+
+
+# ------------------------------------------------------------ the SVO path
+
+# hit masks and voxel ids on common hits of two tracers at most this share
+# apart (tools/tpu_correctness.py:188's hit bar; that harness asks exact
+# ids of one tracer on two devices, these are two tracers)
+SVO_V4_BAR = 0.002
+N_ORBIT_SVO = 2
+SVO_SMALL = (320, 180)
+PT_SVO = dict(max_bounces=3)
+# card vs CPU, trace_rays' positions and water distances (the scalar
+# oracle's tolerance, tests/test_tracer.py:84-90); hit, voxel, normal and
+# steps exact
+SVO_GAP = 1e-3
+SERVE_W = 8
+SERVE_MAX_NODES = 1 << 25
+
+
+def svo_worlds(generated, pos, mn, eye, dp, sp, phase):
+    """The SVO worlds: ``make_demo_world(7, 8)`` on the card and on the CPU
+    (nodes and roots word for word), and the 512-chunk preset world
+    through ``assemble_world_slice`` (fixed slots, built on the card) and
+    through ``build_world_slice`` (the host pool): the pools differ, so
+    their ``trace_rays`` results must be equal; ``packed()`` traces equal
+    to the widened pool."""
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+    from voxelraytracing_tpu_torch.ops.svo_build import build_chunk_svo_batch
+    from voxelraytracing_tpu_torch.ops.traverse import trace_rays
+    from voxelraytracing_tpu_torch.world import (
+        assemble_world_slice, build_world_slice)
+    from voxelraytracing_tpu_torch.world.demo import (
+        demo_materials, make_demo_world)
+
+    t0 = time.perf_counter()
+    demo = make_demo_world(7, 8)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    demo_cpu = make_demo_world(7, 8, device="cpu")
+    bad_demo = sum(words_differ(getattr(demo, f).cpu(), getattr(demo_cpu, f))
+                   for f in demo._fields)
+    g, cells = preset_grids(generated, pos)
+    wmin = np.asarray(mn, np.int32) * 32
+    t0 = time.perf_counter()
+    nodes, counts = build_chunk_svo_batch(g)
+    fixed = assemble_world_slice(nodes, cells, wmin, PRESET_W)
+    torch.cuda.synchronize()
+    t_fixed = time.perf_counter() - t0
+    host_n, host_c = nodes.cpu().numpy(), counts.cpu().numpy()
+    chunks = {p: host_n[i, :host_c[i]] for i, p in enumerate(pos)}
+    t0 = time.perf_counter()
+    pooled, _ = build_world_slice(chunks, mn, PRESET_W)
+    torch.cuda.synchronize()
+    t_pool = time.perf_counter() - t0
+    mats = sp.material_table(dp.voxels)
+    cam = preset_cams(mn, eye, (WIDTH, HEIGHT), 0)[0]
+    origin, dirs = generate_rays(cam, wmin)
+    runs = [trace_rays(w, mats.is_liquid, origin, dirs)
+            for w in (fixed, pooled, fixed.packed(), pooled.packed())]
+    bad_trace = [sum(words_differ(a, b) for a, b in zip(runs[0], r))
+                 for r in runs[1:]]
+    say(phase, f"make_demo_world(7, 8) on the card ({t_card:.2f} s, "
+        f"{demo.nodes.numel()} pool words) vs the CPU: differing words "
+        f"{bad_demo}; preset world ({len(pos)} chunks, "
+        f"{int(counts.sum())} nodes): assemble_world_slice "
+        f"{fixed.nodes.numel()} words in {t_fixed:.2f} s, build_world_slice "
+        f"{pooled.nodes.numel()} words in {t_pool:.2f} s; {WIDTH}x{HEIGHT} "
+        f"trace_rays at the config camera ({int(runs[0].hit.sum())} hits, "
+        f"{int(runs[0].steps.max())} steps at most), words differing from "
+        f"the fixed slots: host pool {bad_trace[0]}, packed fixed "
+        f"{bad_trace[1]}, packed host pool {bad_trace[2]}")
+    check(bad_demo == 0, "make_demo_world differs between card and CPU")
+    check(not any(bad_trace), "the preset world's slices trace differently")
+    return demo, demo_cpu, fixed, mats
+
+
+def svo_vs_v4(worlds, phase):
+    """``trace_rays`` against ``trace_wavefront4_rays`` (the ``touched4`` +
+    ``march_planes4`` bundle path) on the same ``generate_rays`` bundle at
+    1080p: hit masks and voxel ids on common hits at most
+    :data:`SVO_V4_BAR` apart. ``worlds``: name -> (WorldSlice, RenderGrid3,
+    materials, cameras). Launches of both kernels counted from 0."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+    from voxelraytracing_tpu_torch.ops.traverse import trace_rays
+
+    worst = 0.0
+    for name, (world, rg, mats, cams) in worlds.items():
+        wmin = world.world_min.cpu().numpy()
+        for i, cam in enumerate(cams):
+            w, h = cam.proj_size
+            origin, dirs = generate_rays(cam, wmin)
+            ref = trace_rays(world, mats.is_liquid, origin, dirs)
+            for c in (t4.touched4, t4.march_planes4):
+                c.launches = 0
+            wf = t4.trace_wavefront4_rays(
+                rg, origin.expand(h, w, 3), dirs,
+                torch.ones(h, w, dtype=torch.bool, device=dirs.device),
+                width=w, height=h, step_cap=500)
+            torch.cuda.synchronize()
+            launches = (t4.touched4.launches, t4.march_planes4.launches)
+            both = ref.hit & wf.hit
+            hit_mm = int((ref.hit != wf.hit).sum())
+            vox_mm = int((ref.voxel != wf.voxel)[both].sum())
+            n_both = max(int(both.sum()), 1)
+            share = max(hit_mm / (w * h), vox_mm / n_both)
+            worst = max(worst, share)
+            say(phase, f"{name} camera {i} {w}x{h}: SVO trace_rays vs "
+                f"trace_wavefront4_rays, hit mismatches {hit_mm} of {w * h}, "
+                f"voxel mismatches {vox_mm} of {n_both} common hits; "
+                f"touched4/march_planes4 launches {launches}")
+            check(min(launches) >= 1, "the v4 bundle trace did not launch "
+                  "touched4 and march_planes4")
+    check(worst <= SVO_V4_BAR, "the SVO tracer and the v4 kernels disagree "
+          "past the bar")
+    return worst
+
+
+def trace_gap(a, b):
+    """(words differing in hit, voxel, norm, steps; largest gap in pos and
+    water_dist) of two TraceResults."""
+    exact = sum(words_differ(getattr(a, f), getattr(b, f))
+                for f in ("hit", "voxel", "norm", "steps"))
+    gap = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+              for f in ("pos", "water_dist"))
+    return exact, gap
+
+
+def svo_card_vs_cpu(demo, demo_cpu, mats, phase):
+    """At 320x180 on the demo world, card vs CPU: ``trace_rays`` (hit,
+    voxel, norm, steps exact; pos and water word for word, the largest
+    gap printed), ``RayTracer`` plain, shadowed and as the heatmap and
+    ``composite_crosshair`` (0 hit and voxel mismatches, every pixel's
+    sRGB8 within 2/255), ``PathTracer`` with 3 bounces, 1 sample (the PT
+    bar)."""
+    from voxelraytracing_tpu_torch.models import (
+        PathTracer, RayTracer, RenderSettings, composite_crosshair, to_srgb8)
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+    from voxelraytracing_tpu_torch.ops.traverse import trace_rays
+
+    v = 8 * 32
+    static, orbit = bench_cams(v, *SVO_SMALL, n_orbit=N_ORBIT_SVO)
+    cams = [static] + orbit[:1]
+    exact = 0
+    gap = 0.0
+    for cam in cams:
+        origin, dirs = generate_rays(cam, np.zeros(3, np.int32))
+        a = trace_rays(demo, mats.is_liquid, origin, dirs)
+        b = trace_rays(demo_cpu, mats.is_liquid, origin.cpu(), dirs.cpu())
+        e, g = trace_gap(type(a)(*(x.cpu() for x in a)), b)
+        exact, gap = exact + e, max(gap, g)
+    say(phase, f"{len(cams)} cameras at {SVO_SMALL[0]}x{SVO_SMALL[1]}, "
+        f"trace_rays card vs CPU: hit/voxel/norm/steps words differing "
+        f"{exact}, largest pos/water gap {gap:g} (bar {SVO_GAP:g})")
+    check(exact == 0 and gap <= SVO_GAP, "trace_rays differs between card "
+          "and CPU")
+    hit_bad = vox_bad = 0
+    within = total = 0
+    for mode in ("plain", "shadows", "heatmap"):
+        tracer = RayTracer(mats, show_step_count=mode == "heatmap",
+                           shadows=mode == "shadows")
+        for cam in cams:
+            s = RenderSettings(sun_pos=sun_of(cam))
+            img, rs = tracer.render(demo, cam, s)
+            rimg, rrs = tracer.render(demo_cpu, cam, s)
+            hit_bad += int((rs.hit.cpu() != rrs.hit).sum())
+            both = rs.hit.cpu() & rrs.hit
+            vox_bad += int((rs.voxel.cpu() != rrs.voxel)[both].sum())
+            for style in ("off", "dot", "cross"):
+                x = to_srgb8(composite_crosshair(img, style)).astype(int)
+                y = to_srgb8(composite_crosshair(rimg, style)).astype(int)
+                within += int((np.abs(x - y).max(axis=-1) <= 2).sum())
+                total += x.shape[0] * x.shape[1]
+    say(phase, f"RayTracer plain, shadowed and heatmap x {len(cams)} "
+        f"cameras, each with the three crosshair styles, card vs CPU: hit "
+        f"mismatches {hit_bad}, voxel mismatches {vox_bad}, pixels within "
+        f"2/255 {within / total:.6f}")
+    check(hit_bad == 0 and vox_bad == 0 and within == total,
+          "the SVO ray tracer misses the bar against the CPU")
+    worst = 1.0
+    pt = PathTracer(mats, **PT_SVO)
+    for cam in cams[:1]:
+        s = RenderSettings(sun_pos=sun_of(cam))
+        a = pt.render(demo, cam, s, key=np.asarray([0, 7], np.uint32)).cpu()
+        b = pt.render(demo_cpu, cam, s, key=np.asarray([0, 7], np.uint32))
+        worst = min(worst, pt_bar(a, b))
+        check(bool(torch.isfinite(a).all()), "a PathTracer frame is not "
+              "finite")
+    say(phase, f"PathTracer (3 bounces, 1 sample), bench camera at "
+        f"{SVO_SMALL[0]}x{SVO_SMALL[1]}, card vs CPU: worst share of pixels "
+        f"within 2/255 {worst:.6f}")
+    check(worst >= PT_BAR, "the SVO path tracer misses the bar against the "
+          "CPU")
+
+
+def busy_share(fn, frame_ms):
+    """Device share of one call of ``fn``: the summed device time of the
+    kernels and copies it ran (torch.profiler, CUPTI; one stream, so they
+    do not overlap) over ``frame_ms``, and how many there were; None when
+    the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(0)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in dev)
+    if not dev_us:
+        return None, 0.0, 0
+    return dev_us / 1e3 / frame_ms, dev_us / 1e3, len(dev)
+
+
+def config1_world():
+    """benchmarks/run.py:74-98: a flat 32³ chunk (stone below y=12, grass
+    at 12), its camera at 256x256 and sun."""
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+    from voxelraytracing_tpu_torch.ops.materials import make_material_table
+    from voxelraytracing_tpu_torch.ops.svo_build import build_chunk_svo
+    from voxelraytracing_tpu_torch.world import build_world_slice
+
+    g = np.zeros((32,) * 3, np.int32)
+    g[:, :12, :] = 1
+    g[:, 12, :] = 2
+    nodes, n = build_chunk_svo(g)
+    world, _ = build_world_slice(
+        {(0, 0, 0): nodes[:int(n)].cpu().numpy()}, (0, 0, 0), 1)
+    mats = make_material_table(4, {1: {"color": (0.5,) * 3, "state": "solid"},
+                                   2: {"color": (0.2, 0.6, 0.2),
+                                       "state": "solid"}})
+    cam = CamData.create((30.0, 30.0, 0.0), (16.0, 20.0, 16.0), 70.0,
+                         (256, 256))
+    return world, mats, cam, (100.0, 400.0, 50.0)
+
+
+def svo_times(demo, demo_mats, preset, preset_cam, preset_mats, smi, phase):
+    """ms/frame (CUDA events, median of 5 windows) of the SVO ``RayTracer``
+    at 1080p on the demo and preset worlds, plain and shadowed; the
+    ``PathTracer`` at 1080p, 3 bounces, 1 sample (median of 3); config1's
+    frame in Mrays/s as run.py:98 counts it; the device's busy share of a
+    plain demo frame."""
+    from voxelraytracing_tpu_torch.models import (
+        PathTracer, RayTracer, RenderSettings)
+
+    v = 8 * 32
+    static, _ = bench_cams(v, WIDTH, HEIGHT, 0)
+    out = {}
+    for name, world, mats, cam in (("demo", demo, demo_mats, static),
+                                   ("preset", preset, preset_mats,
+                                    preset_cam)):
+        for shadows in (False, True):
+            tr = RayTracer(mats, shadows=shadows)
+            s = RenderSettings(sun_pos=sun_of(cam))
+            out[name, shadows] = median_windows(
+                lambda i: tr.render(world, cam, s), 1)
+    tr = RayTracer(demo_mats)
+    s = RenderSettings(sun_pos=sun_of(static))
+    share, dev_ms, n_dev = busy_share(lambda i: tr.render(demo, static, s),
+                                      out["demo", False])
+    pt = PathTracer(demo_mats, **PT_SVO)
+    s = RenderSettings(sun_pos=sun_of(static))
+    pt.render(demo, static, s)
+    out["pt"] = statistics.median(
+        event_ms(lambda i: pt.render(demo, static, s), 1) for _ in range(3))
+    w1, m1, c1, sun1 = config1_world()
+    t1 = RayTracer(m1)
+    s1 = RenderSettings(sun_pos=sun1)
+    out["config1"] = median_windows(lambda i: t1.render(w1, c1, s1), 1)
+    for name in ("demo", "preset"):
+        say(phase, f"RayTracer {name} world {WIDTH}x{HEIGHT}: plain "
+            f"{out[name, False]:.3f} ms/frame, shadowed "
+            f"{out[name, True]:.3f} ms/frame (median of {WINDOWS} windows, "
+            f"CUDA events; {smi})")
+    say(phase, f"PathTracer demo world {WIDTH}x{HEIGHT}, 3 bounces, 1 "
+        f"sample: {out['pt']:.3f} ms/frame (median of 3; {smi})")
+    say(phase, f"config1 (flat 32^3 chunk, 256x256, run.py:74-98): "
+        f"{out['config1']:.3f} ms/frame = "
+        f"{256 * 256 / out['config1'] / 1e3:.3f} Mrays/s ({smi})")
+    if share is None:
+        say(phase, "device busy share of a plain demo RayTracer frame: not "
+            "measured (torch.profiler saw no device time)")
+    else:
+        say(phase, f"device busy share of a plain demo RayTracer frame: "
+            f"{share:.4f} ({n_dev} kernels and copies, {dev_ms:.3f} ms on the "
+            f"device, torch.profiler, over {out['demo', False]:.3f} ms/frame; "
+            f"{dev_ms / max(n_dev, 1) * 1e3:.1f} us each; {smi})")
+    out["busy"] = share
+    return out
+
+
+def v1_device_builder(phase):
+    """``build_render_grid`` on the card == ``build_render_grid_host`` word
+    for word on the 8-chunk demo world, and the v2 frame (``render`` on a
+    v1 grid) drawn from the device tables == the frame from the host
+    tables, bit for bit."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import noise
+    from voxelraytracing_tpu_torch.ops.wavefront import build_render_grid
+    from voxelraytracing_tpu_torch.world.demo import (
+        demo_chunk_grids_host, demo_materials)
+
+    grids, cells = demo_chunk_grids_host(
+        noise.make_permutation(7), np.zeros(3, np.int64), 8, 8 * 32 * 0.45,
+        int(8 * 32 * 0.28))
+    mats = demo_materials()
+    t0 = time.perf_counter()
+    dev = build_render_grid(grids, cells, np.zeros(3, np.int32), 8, mats)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    host = build_world1(8)
+    fields = ("bwin", "lwin", "brick_dir", "bricks", "world_min", "to_pack")
+    bad = sum(words_differ(getattr(dev, f), getattr(host, f)) for f in fields)
+    same = (dev.n_liquid, dev.size_voxels) == (host.n_liquid,
+                                                host.size_voxels)
+    static, _ = bench_cams(8 * 32, WIDTH, HEIGHT, 0)
+    s = RenderSettings(sun_pos=sun_of(static))
+    r = WavefrontRenderer(mats)
+    a, wa = r.render(dev, static, s)
+    b, wb = r.render(host, static, s)
+    frame_bad = words_differ(a, b) + sum(
+        words_differ(x, y) for x, y in zip(wa, wb))
+    say(phase, f"build_render_grid on the card ({t_dev:.2f} s) vs "
+        f"build_render_grid_host: differing words {bad}, n_liquid and size "
+        f"equal {same}; the v2 {WIDTH}x{HEIGHT} frame from each: differing "
+        f"image and trace words {frame_bad}")
+    check(bad == 0 and same and frame_bad == 0,
+          "the v1 device builder differs from the host builder")
+
+
+class ServerLoop:
+    """The port's ``ServerState`` ticking in a thread of this process (the
+    server CLI's loop); :meth:`stop` re-raises what the thread raised."""
+
+    def __init__(self, state):
+        import threading
+
+        self.state = state
+        self.error = None
+        self.halt = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            while not self.halt.is_set():
+                self.state.handle_clients()
+                self.state.update()
+                self.state.update_world()
+                time.sleep(0.001)
+        except BaseException as e:  # handed to the main thread by stop()
+            self.error = e
+
+    def stop(self):
+        self.halt.set()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def serve_client(port, name):
+    from voxelraytracing_tpu_torch.client import (
+        ClientWorld, GameState, ServerConn)
+
+    conn = ServerConn.establish(("127.0.0.1", port), name)
+    center = np.floor_divide(np.asarray(conn.player_pos, np.int64), 32)
+    return GameState(name, ClientWorld(center, SERVE_MAX_NODES, SERVE_W), conn)
+
+
+def pump_until(game, loop, done, what, quiet_s=0.0, limit_s=120.0):
+    """Pump ``game``'s commands until ``done()`` holds and no chunk has
+    arrived for ``quiet_s`` seconds; fails after ``limit_s``."""
+    t0 = last = time.perf_counter()
+    while True:
+        rs = game.process_cmds_timeout(0.02)
+        now = time.perf_counter()
+        if rs.updated_chunks:
+            last = now
+        if loop.error is not None:
+            loop.stop()
+        if done() and now - last >= quiet_s:
+            return now - t0
+        check(now - t0 < limit_s, f"the served world did not {what} in "
+              f"{limit_s:.0f} s")
+        time.sleep(0.002)
+
+
+def client_slice(game):
+    from voxelraytracing_tpu_torch.world.pool import world_slice
+
+    w = game.world
+    return world_slice(w.nodes, w.chunk_roots(), w.min_voxel)
+
+
+def served_world(dp, sp, phase):
+    """A served world end to end: the port's ``ServerState`` on localhost in
+    this process (terra, Continents, seed 20260816, spawn at
+    ``find_land_near(0, 0)``; generation and ``build_nodes`` on the card),
+    a ``GameState`` with a window of 8 streaming until its 512 chunks are
+    populated (chunks/s); its ``WorldSlice`` (``nodes`` + ``chunk_roots()``)
+    draws a 1080p ``RayTracer`` frame equal bit for bit to one drawn from
+    ``build_world_slice`` of the server's chunk nodes; a second client
+    connects, the first one's ``set_voxel`` echoes to it, and after the
+    edit both clients' frames equal the server's."""
+    from voxelraytracing_tpu_torch.models import RayTracer, RenderSettings
+    from voxelraytracing_tpu_torch.server import ServerState, ServerWorld
+    from voxelraytracing_tpu_torch.world import build_world_slice
+    from voxelraytracing_tpu_torch.worldgen import WorldGen
+
+    gen = WorldGen.from_datapack(dp, PRESET_SEED)
+    state = ServerState(ServerWorld(gen), voxel_pack=dp.voxels)
+    port = state.start()
+    mats = sp.material_table(dp.voxels)
+    n = SERVE_W ** 3
+    try:
+        loop = ServerLoop(state)
+        a = serve_client(port, "first")
+        a.request_missing_chunks()
+        t_stream = pump_until(a, loop, lambda: a.world.populated_count() >= n,
+                              "stream")
+        t_quiet = pump_until(
+            a, loop, lambda: not state.chunks_to_build
+            and not state.dirty_chunks, "settle", quiet_s=1.0)
+        loop.stop()
+        a.process_cmds_timeout(0.2)
+        x, y, z = (int(np.floor(c)) for c in a.player.pos)
+        cam_eye = (x + 20.0, y + 30.0, z + 20.0)
+        from voxelraytracing_tpu_torch.ops.camera import CamData
+
+        cam = CamData.create((30.0, 45.0, 0.0), cam_eye, 70.0, (WIDTH, HEIGHT))
+        s = RenderSettings(sun_pos=sun_of(cam))
+        tracer = RayTracer(mats)
+        mn = tuple(int(c) for c in a.world.min_chunk)
+        keys = sorted(a.world.chunks)
+
+        def server_frame():
+            nodes = state.world.build_nodes(keys)
+            ws, _ = build_world_slice(nodes, mn, SERVE_W)
+            return tracer.render(ws, cam, s)
+
+        def frame_words(f, g):
+            return words_differ(f[0], g[0]) + sum(
+                words_differ(p, q) for p, q in zip(f[1], g[1]))
+
+        fa, fs = tracer.render(client_slice(a), cam, s), server_frame()
+        bad_first = frame_words(fa, fs)
+        n_nodes = sum(len(v) for v in state.world.build_nodes(keys).values())
+        say(phase, f"served world (terra, Continents, seed {PRESET_SEED}, "
+            f"spawn {tuple(round(c, 1) for c in state.spawn)}): {n} chunks "
+            f"streamed to a window of {SERVE_W} in {t_stream:.2f} s = "
+            f"{n / t_stream:.1f} chunks/s (generation and SVO build on the "
+            f"card, localhost TCP), settled (features placed, resent) "
+            f"{t_quiet:.2f} s later; {n_nodes} server nodes; {WIDTH}x{HEIGHT} "
+            f"RayTracer frame of the client's pool vs build_world_slice of "
+            f"the server's nodes: differing words {bad_first} "
+            f"({int(fa[1].hit.sum())} hits)")
+        check(bad_first == 0, "the client's frame differs from the server's")
+        check(keys == sorted(state.world.build_nodes(keys)),
+              "the client holds chunks the server does not")
+
+        loop = ServerLoop(state)
+        b = serve_client(port, "second")
+        b.request_missing_chunks()
+        t_b = pump_until(b, loop, lambda: b.world.populated_count() >= n,
+                         "stream to the second client")
+        # the edit: stone in the air voxel in front of the hit nearest the
+        # frame's centre on its middle row
+        rs = fa[1]
+        row = rs.hit[HEIGHT // 2].nonzero().flatten().cpu()
+        check(len(row) > 0, "the served world's frame has no hit on its "
+              "middle row")
+        px = int(row[(row - WIDTH // 2).abs().argmin()])
+        hp = rs.pos[HEIGHT // 2, px] + rs.norm[HEIGHT // 2, px] * 0.5
+        edit = tuple(int(v) for v in (torch.floor(hp).cpu().numpy()
+                                      + a.world.min_voxel))
+        stone = a.voxels.by_name("stone")
+        before = (a.world.get_voxel(edit), b.world.get_voxel(edit))
+        a.set_voxel(edit, stone)
+        pump_until(b, loop, lambda: b.world.get_voxel(edit) == stone,
+                   "echo the edit")
+        pump_until(a, loop, lambda: state.world.get_voxel(edit) == stone
+                   and not state.dirty_chunks, "apply the edit")
+        loop.stop()
+        for g in (a, b):
+            g.process_cmds_timeout(0.2)
+        fs2 = server_frame()
+        fa2 = tracer.render(client_slice(a), cam, s)
+        fb2 = tracer.render(client_slice(b), cam, s)
+        bad = (frame_words(fa2, fs2), frame_words(fb2, fs2))
+        changed = words_differ(fs2[0], fs[0])
+        say(phase, f"second client streamed {n} chunks in {t_b:.2f} s = "
+            f"{n / t_b:.1f} chunks/s (each built on the server already); the "
+            f"first client set "
+            f"{edit} from {before[0]} to stone ({stone}), echoed to the "
+            f"second (was {before[1]}); after the edit, differing frame words "
+            f"first client vs server {bad[0]}, second client vs server "
+            f"{bad[1]}; image words the edit changed {changed}")
+        check(bad == (0, 0), "a client's frame differs from the server's "
+              "after the edit")
+        check(changed > 0, "the edit did not show in the frame")
+        for g in (a, b):
+            g.disconnect()
+        return n / t_stream
+    finally:
+        state.stop()
 
 
 def main():
@@ -2974,9 +3529,30 @@ def main():
     t_preset = time.perf_counter()
     gen, dp, sp, pos, mn, eye, batch, grids, generated = phase_worldgen(30)
     phase_svo_build(gen, dp, batch, grids, 31)
-    phase_preset_frames(generated, dp, sp, pos, mn, eye, card, 32)
+    rg_p, mats_p = phase_preset_frames(generated, dp, sp, pos, mn, eye, card,
+                                       32)
     phase_native(w80["rows_calls"], 33)
     say(33, f"phases 30-33 took {time.perf_counter() - t_preset:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the SVO render path: worlds, the tracer against the v4 kernels, card
+    # vs CPU, frame times, the v1 device builder, a served world
+    t_svo = time.perf_counter()
+    demo, demo_cpu, fixed, mats_svo = svo_worlds(generated, pos, mn, eye, dp,
+                                                 sp, 34)
+    rg8, mats8, v8 = build_world(8)
+    s8, o8 = bench_cams(v8, WIDTH, HEIGHT, N_ORBIT_SVO)
+    p_cams = preset_cams(mn, eye, (WIDTH, HEIGHT), N_ORBIT_SVO)
+    svo_vs_v4({"demo": (demo, rg8, mats8, [s8] + o8),
+               "preset": (fixed, rg_p, mats_svo, p_cams)}, 35)
+    del rg8, rg_p
+    svo_card_vs_cpu(demo, demo_cpu, mats8, 36)
+    svo_times(demo, mats8, fixed, p_cams[0], mats_svo, card, 37)
+    del demo, demo_cpu, fixed
+    torch.cuda.empty_cache()
+    v1_device_builder(38)
+    served_world(dp, sp, 39)
+    say(39, f"phases 34-39 took {time.perf_counter() - t_svo:.1f} s")
     torch.cuda.empty_cache()
 
     px = WIDTH * HEIGHT
@@ -3100,7 +3676,7 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": line}))
-    say(34, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(40, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

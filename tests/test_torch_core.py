@@ -350,7 +350,22 @@ def test_errors_raise_jax_classes(kind, src):
     assert issubclass(ron.RonError, ValueError)
 
 
-def test_logger_lives_under_the_port():
-    assert get_logger("x").name == "voxelraytracing_tpu_torch.x"
-    assert get_logger("voxelraytracing_tpu_torch.y").name == (
-        "voxelraytracing_tpu_torch.y")
+def test_logger_lives_under_the_port(monkeypatch):
+    """The port's loggers live under its package; the handler, level and
+    propagation that ``get_logger`` sets up are restored afterwards, so a
+    later test of this process still reads records through ``caplog``."""
+    import logging
+
+    from voxelraytracing_tpu_torch.utils import log as port_log
+
+    root = logging.getLogger("voxelraytracing_tpu_torch")
+    saved = (list(root.handlers), root.propagate, root.level)
+    monkeypatch.setattr(port_log, "_initialized", port_log._initialized)
+    try:
+        assert get_logger("x").name == "voxelraytracing_tpu_torch.x"
+        assert get_logger("voxelraytracing_tpu_torch.y").name == (
+            "voxelraytracing_tpu_torch.y")
+    finally:
+        root.handlers[:] = saved[0]
+        root.propagate = saved[1]
+        root.setLevel(saved[2])

@@ -62,6 +62,19 @@ def test_every_module_imports_without_jax():
             "voxelraytracing_tpu_torch.world.demo",
             "voxelraytracing_tpu_torch.server",
             "voxelraytracing_tpu_torch.server.world",
+            # the SVO render path, the renderer models, net/client/server
+            "voxelraytracing_tpu_torch.world.pool",
+            "voxelraytracing_tpu_torch.models.pathtracer",
+            "voxelraytracing_tpu_torch.models.raytracer",
+            "voxelraytracing_tpu_torch.net",
+            "voxelraytracing_tpu_torch.net.protocol",
+            "voxelraytracing_tpu_torch.net.conn",
+            "voxelraytracing_tpu_torch.client",
+            "voxelraytracing_tpu_torch.client.world",
+            "voxelraytracing_tpu_torch.client.player",
+            "voxelraytracing_tpu_torch.client.game",
+            "voxelraytracing_tpu_torch.server.state",
+            "voxelraytracing_tpu_torch.server.persistence",
             } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -76,9 +89,14 @@ def test_every_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    smoke = (ROOT / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(from|import)\s+(jax|voxelraytracing_tpu)\b",
-                         smoke, re.M)
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|voxelraytracing_tpu)\b"
+                     r"(?!_torch)", re.M)
+    assert not bad.search((ROOT / "chip_smoke.py").read_text())
+    pkg = ROOT / "voxelraytracing_tpu_torch"
+    srcs = sorted(pkg.rglob("*.py"))
+    assert len(srcs) >= len(mods)
+    for src in srcs:  # no module of the port names JAX or the JAX package
+        assert not bad.search(src.read_text()), src
 
 
 def test_native_library_is_the_ports_own():
@@ -210,7 +228,9 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from voxelraytracing_tpu_torch import convert
-    from voxelraytracing_tpu_torch.ops import camera, wavefront, wavefront3
+    from voxelraytracing_tpu_torch.ops import (
+        camera, prng, wavefront, wavefront3)
+    from voxelraytracing_tpu_torch.world import assemble, demo, pool
     from voxelraytracing_tpu_torch.world.render_grid import RenderGrid3Builder
 
     for fn in (wavefront.build_render_grid_host, convert.render_grid_from_numpy,
@@ -218,8 +238,18 @@ def test_entry_points_default_to_the_card():
                convert.render_grid3_from_numpy, convert.prepared_from_numpy,
                convert.prepared_sparse_from_numpy, camera.generate_rays_raw,
                camera.generate_rays, RenderGrid3Builder,
-               wavefront3.empty_frame_cache):
+               wavefront3.empty_frame_cache, wavefront.build_render_grid,
+               wavefront.build_render_grid_impl, pool.build_world_slice,
+               pool.world_slice, assemble.assemble_world_slice,
+               demo.make_demo_world, prng.normal, prng.random_bits):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    # the SVO tracer and its renderers take the device of the world's
+    # tensors (built on the card unless the caller asked for the CPU)
+    from voxelraytracing_tpu_torch.models import PathTracer, RayTracer
+    from voxelraytracing_tpu_torch.ops import traverse
+
+    for fn in (traverse.trace_rays, RayTracer.render, PathTracer.render):
+        assert "device" not in inspect.signature(fn).parameters, fn
     # helpers take the device of their caller's tensors
     tile_valid = inspect.signature(wavefront3._tile_valid).parameters
     assert tile_valid["device"].default is inspect.Parameter.empty

@@ -13,6 +13,10 @@ CHUNK_DEPTH = 5
 # (reference: common/src/world/mod.rs:18).
 NODES_PER_CHUNK = 37449
 
+# Extra headroom reserved when a chunk is placed into the shared node pool,
+# so in-place edits rarely force a reallocation (reference: common/src/world/mod.rs:23).
+CHUNK_INIT_FREE_MEM = 2048
+
 # Chunks per region-file edge (reference: common/src/world/mod.rs:25).
 REGION_SIZE = 16
 
@@ -20,5 +24,10 @@ REGION_SIZE = 16
 # (reference: common/src/world/mod.rs:143).
 VOXEL_MAX_VALUE = 0xFFFF // 2
 
-# Ray-march iteration cap (reference: ray_tracer.wgsl:220).
+# Ray-march iteration caps (reference: ray_tracer.wgsl:220, path_tracer.wgsl:226).
 MAX_RAY_STEPS = 500
+MAX_PATH_STEPS = 200
+
+# Epsilon used to nudge a ray across a node boundary
+# (reference: ray_tracer.wgsl:188, :274).
+RAY_EPS = 0.001

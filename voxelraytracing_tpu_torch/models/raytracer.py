@@ -1,8 +1,12 @@
-"""The primary ray tracer's user-facing surface.
+"""The primary ray tracers' user-facing surface.
 
-Port of ``RenderSettings``, ``shade_hits``, ``WavefrontRenderer``
-(``render``, ``render_packed``) and ``to_srgb8`` from
-``voxelraytracing_tpu/models/raytracer.py``. The renderer routes frames as
+Port of ``voxelraytracing_tpu/models/raytracer.py``: ``RenderSettings``,
+``shade_hits``, the SVO :class:`RayTracer`, ``to_srgb8``,
+``composite_crosshair`` and ``WavefrontRenderer`` (``render``,
+``render_packed``). :class:`RayTracer` marches the SVO node pool
+(:func:`~..ops.traverse.trace_rays`, torch on the device of the world's
+tensors) and shades with :func:`shade_hits`, with an optional hard-shadow
+pass. The fast renderer routes frames as
 the JAX one does: on a :class:`~..ops.wavefront3.RenderGrid3`,
 ``tracer="v4"`` draws the split v4 frame
 (:func:`~..ops.wavefront4.render_frame4`, ``fused=False``), any other
@@ -18,10 +22,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.constants import MAX_RAY_STEPS
-from ..ops.camera import CamData, _f32, generate_rays_raw
+from ..core.constants import MAX_RAY_STEPS, RAY_EPS
+from ..ops.camera import CamData, _f32, generate_rays_raw, sqrt_rn
 from ..ops.sky import ray_sky
-from ..ops.traverse import TraceResult
+from ..ops.traverse import TraceResult, WorldSlice, trace_rays
 
 STEP_CAP = 500  # per-ray step budget (ray_tracer.wgsl:220)
 STEPS_PER_ROUND = 48  # sets the show_step_count heatmap scale, as in JAX
@@ -81,11 +85,88 @@ def shade_hits(rs: TraceResult, dirs, origin, materials, sky_color, sun_pos,
         out)
 
 
+class RayTracer:
+    """Flagship SVO renderer: primary rays + face shading (+ optional hard
+    shadows), on the device of the world's tensors."""
+
+    def __init__(self, materials, show_step_count=False, shadows=False,
+                 max_steps=MAX_RAY_STEPS):
+        self.materials = materials
+        self.show_step_count = bool(show_step_count)
+        self.shadows = bool(shadows)
+        self.max_steps = int(max_steps)
+
+    def render(self, world: WorldSlice, cam: CamData,
+               settings: RenderSettings = None):
+        """Render one frame; returns ``(f32[H,W,3] image, TraceResult)``.
+
+        ``settings.shadows`` enables the shadow pass per frame on top of the
+        constructor default; ``settings.shadow_ambient`` sets how much light
+        shadowed surfaces keep."""
+        s = settings or RenderSettings()
+        w, h = cam.proj_size
+        dev = world.nodes.device
+        wmin = world.world_min.cpu().numpy()
+        origin, dirs = generate_rays_raw(cam.inv_view, cam.inv_proj, cam.pos,
+                                         w, h, wmin, device=dev)
+        mats = self.materials
+        rs = trace_rays(world, mats.is_liquid, origin, dirs, self.max_steps)
+        img = shade_hits(rs, dirs, origin, mats, s.sky_color, s.sun_pos,
+                         s.sun_intensity, wmin,
+                         show_step_count=self.show_step_count,
+                         max_steps=self.max_steps)
+        if self.shadows or s.shadows:
+            # Hard shadows: one occlusion ray from each hit point toward the
+            # sun; shadowed surfaces keep ``shadow_ambient`` of their light.
+            sun_vec = (torch.tensor(s.sun_pos, dtype=torch.float32).to(dev)
+                       - world.world_min.to(torch.float32) - rs.pos)
+            sq = sun_vec * sun_vec
+            n = sqrt_rn((sq[..., 0] + sq[..., 1]) + sq[..., 2])
+            sun_dir = sun_vec / n[..., None]
+            shadow_org = rs.pos + rs.norm * (4.0 * RAY_EPS)
+            srs = trace_rays(world, mats.is_liquid, shadow_org, sun_dir,
+                             self.max_steps)
+            shadowed = rs.hit & srs.hit
+            amb = float(np.float32(s.shadow_ambient))
+            img = torch.where(shadowed[..., None], img * amb, img)
+        return img, rs
+
+
 def to_srgb8(img):
     """Linear f32 frame -> uint8 RGB on the host (the rgba8unorm store
     clamps identically)."""
     img = torch.as_tensor(img)
     return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
+def composite_crosshair(img, style="cross", size=8.0,
+                        color=(1.0, 1.0, 1.0, 0.8)):
+    """Blend a dot/cross crosshair over the screen center of an f32
+    ``[H, W, 3]`` frame, on its device.
+
+    The blit-stage fragment math of screen_shader.wgsl:43-65: mask = 1 inside
+    the shape (dot: dist < size; cross: two axis-aligned bars of half-width
+    size/4), scaled by color alpha; out = img*(1-mask) + color.rgb*mask.
+    ``style`` is "off" | "dot" | "cross".
+    """
+    if style in (None, "off", 0):
+        return img
+    h, w = img.shape[:2]
+    cy, cx = h * 0.5, w * 0.5
+    dev = img.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    dy = (ys - cy).abs()
+    dx = (xs - cx).abs()
+    if style in ("dot", 1):
+        mask = (sqrt_rn(dx * dx + dy * dy) < size).to(torch.float32)
+    else:  # cross
+        bar = size * 0.25
+        mask = (((dx < size) & (dy < bar))
+                | ((dy < size) & (dx < bar))).to(torch.float32)
+    mask = (mask * float(np.float32(color[3])))[..., None]
+    rgb = torch.tensor(color[:3], dtype=img.dtype).to(dev)
+    return img * (1.0 - mask) + rgb * mask
 
 
 class WavefrontRenderer:

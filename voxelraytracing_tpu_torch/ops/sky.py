@@ -25,7 +25,7 @@ def smoothstep(e0, e1, x):
 
 def ray_sky(dirs, origin, sky_color, sun_pos, sun_intensity, world_min):
     """Sky radiance f32[..., 3] for rays ``dirs`` (f32[..., 3]) from the
-    world-local ``origin``.
+    world-local ``origin`` (f32[3], or one a ray: f32[..., 3]).
 
     ``sun_pos`` is a world-coordinate position; the sun direction is
     ``normalize(sun_pos - world_min - origin)`` (ray_tracer.wgsl:152).
@@ -44,9 +44,9 @@ def ray_sky(dirs, origin, sky_color, sun_pos, sun_intensity, world_min):
 
     sun_vec = vec(sun_pos) - vec(world_min) - vec(origin)
     sq = sun_vec * sun_vec
-    sun_dir = sun_vec / sqrt_rn((sq[0] + sq[1] + sq[2]).reshape(1))
-    dot = (dirs[..., 0] * sun_dir[0] + dirs[..., 1] * sun_dir[1]) \
-        + dirs[..., 2] * sun_dir[2]
+    sun_dir = sun_vec / sqrt_rn(((sq[..., 0] + sq[..., 1]) + sq[..., 2])[..., None])
+    dot = (dirs[..., 0] * sun_dir[..., 0] + dirs[..., 1] * sun_dir[..., 1]) \
+        + dirs[..., 2] * sun_dir[..., 2]
     sun = ((dot > (1.0 - SUN_SIZE)) & (ground_to_sky >= 1.0)).to(torch.float32)
 
     base = void + (gradient - void) * ground_to_sky[..., None]

@@ -2,10 +2,12 @@
 
 Port of the pieces of ``voxelraytracing_tpu/ops/wavefront.py`` that the
 bit-plane tracers build on: the tile and brick constants, the render-id
-maps, and the v1 :class:`RenderGrid` with its host builder
-:func:`build_render_grid_host`, which the v2 march (``wavefront2.py``)
-reads. The brick tables it builds are also the v3 grid's. The v1 tracer
-itself (a host loop of XLA programs) is not ported.
+maps, and the v1 :class:`RenderGrid` with its two builders: the host one
+(:func:`build_render_grid_host`, NumPy) and the device one
+(:func:`build_render_grid`, torch ops on the card unless the caller asks
+for the CPU), whose tables are the same word for word. The v2 march
+(``wavefront2.py``) reads them; the brick tables are also the v3 grid's.
+The v1 tracer itself (a host loop of XLA programs) is not ported.
 
 Render ids are a state-sorted remap of pack voxel ids (0 = air, then
 liquids, then everything else), so liquid tests are range compares instead
@@ -185,3 +187,118 @@ def build_render_grid_host(grids, cells, world_min, size_in_chunks, materials,
         n_liquid=int(n_liquid),
         size_voxels=v,
     )
+
+
+def _bits_i32(x):
+    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def build_render_grid_impl(grids, cells, world_min, to_render, to_pack,
+                           n_liquid, size_in_chunks, device="cuda"):
+    """Compile dense chunk grids into the v1 traversal tables on ``device``
+    (ops/wavefront.py:152-234), in one pass of tensor ops.
+
+    grids: ``int32[B,32,32,32]`` pack-id voxel grids (axes x,y,z).
+    cells: ``int32[B]`` window-local flat chunk cell ``x + y*W + z*W²``
+      (negative = unused slot).
+
+    JAX scatters the brick bits and the directory rows with
+    ``mode="drop"``, sending unused slots to the out-of-range brick
+    ``S³``; here each target has one spare entry there, which takes those
+    writes and is cut off. JAX sums the shifted uint32 bits; here the sums
+    run in int64 (the bit sets are disjoint, so a sum is an OR) and land
+    as int32 words with the same bits.
+    """
+    i32, i64 = torch.int32, torch.int64
+
+    def on(x, dtype):
+        x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        return x.to(device=device, dtype=dtype)
+
+    w = size_in_chunks
+    v = w * CHUNK_SIZE
+    vpad = _cdiv(v, BWIN_VOX) * BWIN_VOX
+    nb = vpad // BWIN_VOX
+    grids, cells = on(grids, i64), on(cells, i64)
+    to_render = on(to_render, i64)
+    b = grids.shape[0]
+
+    # pack ids -> render ids (one-off world-build gather)
+    rg = to_render[grids]  # [B,32,32,32]
+
+    cx = cells % w
+    cy = (cells // w) % w
+    cz = cells // (w * w)
+    valid = cells >= 0
+
+    # ---- brick classification ------------------------------------------
+    # Brick view: [B, Bx,vx, By,vy, Bz,vz] with 8 bricks and 4 voxels/axis.
+    bview = rg.reshape(b, 8, BRICK, 8, BRICK, 8, BRICK)
+    is_liq_v = (bview >= 1) & (bview <= n_liquid)
+    ax = (2, 4, 6)
+    any_solid = (bview > n_liquid).any(dim=ax[2]).any(dim=ax[1]).any(dim=ax[0])
+    any_liq = is_liq_v.any(dim=ax[2]).any(dim=ax[1]).any(dim=ax[0])
+    all_liq = is_liq_v.all(dim=ax[2]).all(dim=ax[1]).all(dim=ax[0])
+    any_air = (bview == 0).any(dim=ax[2]).any(dim=ax[1]).any(dim=ax[0])
+    descend = any_solid | (any_liq & any_air)  # [B,8,8,8]
+
+    # global brick coords of each chunk's 8³ bricks
+    bg_side = nb * BWIN
+    ii = torch.arange(8, dtype=i64, device=device)
+    gbx = ii[None, :, None, None] + (cx * 8)[:, None, None, None]
+    gby = ii[None, None, :, None] + (cy * 8)[:, None, None, None]
+    gbz = ii[None, None, None, :] + (cz * 8)[:, None, None, None]
+    gflat = gbx + gby * bg_side + gbz * bg_side * bg_side
+    gflat = torch.where(valid[:, None, None, None], gflat,
+                        torch.full_like(gflat, bg_side ** 3)).reshape(-1)
+
+    def brick_windows(bbits):
+        """Scatter [B,8,8,8] per-chunk brick bits into window bit rows."""
+        bgrid = torch.zeros(bg_side ** 3 + 1, dtype=i64, device=device)
+        bgrid[gflat] = bbits.reshape(-1).to(i64)
+        # flat = bx + by*S + bz*S² -> C reshape into (nb,16,nb,16,nb,16)
+        # yields axes (zw, zl, yw, yl, xw, xl); regroup per window with the
+        # in-window linear order bx + by*16 + bz*256 (x fastest).
+        g6 = bgrid[: bg_side ** 3].reshape(nb, BWIN, nb, BWIN, nb, BWIN)
+        bits = g6.permute(0, 2, 4, 1, 3, 5).reshape(nb * nb * nb, 128, 32)
+        wshift = torch.arange(32, dtype=i64, device=device)
+        return _bits_i32((bits << wshift).sum(dim=-1))
+
+    bwin = brick_windows(descend)
+    lwin = brick_windows(all_liq)
+
+    # ---- brick contents + directory ------------------------------------
+    # content row for chunk i, brick (bx,by,bz) = i*512 + bx*64 + by*8 + bz
+    bc = bview.permute(0, 1, 3, 5, 6, 4, 2).reshape(b * 512, 16, 4)
+    shifts = torch.arange(4, dtype=i64, device=device) * 8
+    bricks = _bits_i32((bc << shifts).sum(dim=-1))  # [b*512, 16]
+
+    li = (ii[:, None, None] * 64 + ii[None, :, None] * 8 + ii[None, None, :])
+    rows = torch.arange(b, dtype=i64, device=device)[:, None, None, None] \
+        * 512 + li
+    brick_dir = torch.full((bg_side ** 3 + 1,), -1, dtype=i32, device=device)
+    brick_dir[gflat] = rows.reshape(-1).to(i32)
+
+    return RenderGrid(
+        bwin=bwin,
+        lwin=lwin,
+        brick_dir=brick_dir[: bg_side ** 3].contiguous(),
+        bricks=bricks,
+        world_min=on(world_min, i32),
+        to_pack=on(to_pack, i32),
+        n_liquid=int(n_liquid),
+        size_voxels=v,
+    )
+
+
+def build_render_grid(grids, cells, world_min, size_in_chunks, materials,
+                      device="cuda"):
+    """The v1 RenderGrid built on ``device`` (the card unless the caller
+    asks for the CPU), the id maps derived from a MaterialTable
+    (ops/wavefront.py:237-250); equal word for word to
+    :func:`build_render_grid_host`'s."""
+    to_render, to_pack, n_liquid = render_id_maps(
+        np.asarray(materials.is_liquid))
+    return build_render_grid_impl(grids, cells, world_min, to_render, to_pack,
+                                  n_liquid, size_in_chunks, device=device)

@@ -1,6 +1,14 @@
-"""World builders of the port: the demo terrain (device and host), window
-cells and the streaming RenderGrid3 builder."""
+"""World state containers: node pool, device assembly, demo terrain and
+the streaming RenderGrid3 builder (``world/render_grid.py``)."""
 
-from .assemble import chunk_min_corners, grid_cells
+from .assemble import assemble_world_slice, chunk_min_corners, grid_cells
+from .pool import ChunkAlloc, NodePool, build_world_slice
 
-__all__ = ["chunk_min_corners", "grid_cells"]
+__all__ = [
+    "ChunkAlloc",
+    "NodePool",
+    "assemble_world_slice",
+    "build_world_slice",
+    "chunk_min_corners",
+    "grid_cells",
+]

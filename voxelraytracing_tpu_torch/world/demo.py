@@ -5,8 +5,8 @@ layered stone/earth/grass columns with sea-level water, as a batch of
 dense ``[32³]`` chunk grids, built on the device (``demo_chunk_grids``)
 or on the host (``demo_chunk_grids_host``, its NumPy twin). The
 benchmark world and the port's tests are built from them.
-``make_demo_world`` needs the SVO ``WorldSlice``, which the port does not
-have yet.
+``make_demo_world`` builds the grids' SVOs on the device and assembles
+them into a ready-to-trace ``WorldSlice``.
 """
 
 import numpy as np
@@ -65,6 +65,24 @@ def demo_chunk_grids(perm, min_chunk, size_in_chunks, height_scale,
     grid = torch.where((y >= hh - 1) & (y < hh), GRASS, grid)
     grid = torch.where((grid == AIR) & (y < int(sea_level)), WATER, grid)
     return grid.to(i32), cells
+
+
+def make_demo_world(seed=7, size_in_chunks=8, min_chunk=(0, 0, 0),
+                    device="cuda"):
+    """Build a ready-to-trace WorldSlice on ``device`` (the card unless
+    the caller asks for the CPU): W³ chunks of layered terrain, their
+    SVOs built in one batch, in fixed-stride slots."""
+    from ..ops.svo_build import build_chunk_svo_batch
+    from .assemble import assemble_world_slice
+
+    perm = torch.from_numpy(noise.make_permutation(seed)).to(device)
+    w = size_in_chunks
+    grids, cells = demo_chunk_grids(
+        perm, min_chunk, w, float(np.float32(w * CHUNK_SIZE * 0.45)),
+        int(w * CHUNK_SIZE * 0.28), device=device)
+    nodes, _ = build_chunk_svo_batch(grids, device=device)
+    world_min = np.asarray(min_chunk, np.int32) * CHUNK_SIZE
+    return assemble_world_slice(nodes, cells, world_min, w, device=device)
 
 
 def demo_chunk_grids_host(perm, min_chunk, size_in_chunks, height_scale, sea_level):
