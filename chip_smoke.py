@@ -8,8 +8,10 @@ worldgen), through the entry points a user calls
 ``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``,
 ``RenderGrid3Builder``, ``WorldGen.generate_chunks``, ``ServerWorld``, the
 probe scripts' ``main``, the SVO tracer ``trace_rays``, ``RayTracer``,
-``PathTracer``, ``build_render_grid`` and a served world through
-``ServerState`` and ``GameState``), after building the hand-written CUDA kernels
+``PathTracer``, ``build_render_grid``, a served world through
+``ServerState`` and ``GameState``, the band-sharded frames of
+``parallel/``, an ``EngineApp`` session, ``graft_entry`` and
+``utils.profiling``), after building the hand-written CUDA kernels
 from ``voxelraytracing_tpu_torch/csrc`` (one nvcc per source, all at once)
 and the port's native host library (``native/svo_core.cpp``, g++):
 
@@ -18,9 +20,9 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      memory and spills of each ``__global__`` (the four
      ``march_fused4_kernel`` instantiations among them);
   3. the 8-chunk world (256³ voxels), built straight onto the card;
-  4. the fused primary frame at 1920x1080, bench camera + 48 orbit
-     cameras: kernel vs plain PyTorch version on the card, flags and
-     packed words exactly equal;
+  4. the fused primary frame at 1920x1080, bench camera + 4 orbit
+     cameras (one a quadrant of bench.py's 48): kernel vs plain PyTorch
+     version on the card, flags and packed words exactly equal;
   5. 320x180, card vs the plain version on the CPU (the one the CPU tests
      hold to the JAX package): the cross-platform bar of
      TPU_CORRECTNESS.json, 0 hit and voxel mismatches, every pixel within
@@ -30,7 +32,7 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      kernel never; 10 frames through ``render_frame4(fused=True)``: the
      fused kernel once a frame;
   7. the shadowed frame (config2's sun, 500-step cap) at 1920x1080 and
-     1280x720, bench camera + 48 orbit cameras: fused kernel vs its plain
+     1280x720, bench camera + 4 orbit cameras: fused kernel vs its plain
      version exactly equal; split frame == fused frame, with and without
      shadows; each launch of the split frame vs its plain version on the
      same inputs, exactly equal: start marks and state planes of the
@@ -67,10 +69,10 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      the one the kernels line carries (the every-ray formula is printed
      beside it, to compare with earlier runs);
  11. phases 4 and 10's primary timing and SIMT efficiency on the 16-chunk
-     world (512³ voxels, 117 MB of tables), bench camera + 12 orbit
-     cameras;
+     world (512³ voxels, 117 MB of tables), bench camera + 4 orbit
+     cameras (timing: 12);
  12. the path tracers on the 8-chunk world at 1920x1080 (config3's frame:
-     config2's sun, 500-step cap), bench camera + 12 orbit cameras, on the
+     config2's sun, 500-step cap), bench camera + 1 orbit camera, on the
      demo materials and on the mirror table of tests/test_pathtrace4.py
      (scatter 0: nothing drawn): the one-launch kernel ``pt4`` vs its
      plain version with 0, 1 and 2 bounces (bit for bit where nothing is
@@ -123,8 +125,9 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      tokens) at 1920x1080 on the static and 3 orbit cameras, config2's
      720p shadowed frame (per-ray mode), a 1080p trace whose round loop
      compacts (tile map) and one with ``lookahead=2``;
- 20. ``render_frame3`` at 320x180 with and without shadows, card vs the
-     plain versions on the CPU: the bar of phase 5;
+ 20. ``render_frame3`` at 320x180 with and without shadows on the bench
+     camera and one orbit camera, card vs the plain versions on the CPU:
+     the bar of phase 5;
  21. ``render_frame3`` at a converged budget (64 rounds) equals the split
      v4 frame word for word, shadows on;
  22. launches a frame (``march3`` launches are rounds used, plus
@@ -143,7 +146,7 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      grid's), with their MB;
  25. ``march2`` vs ``march2_ref`` on the inputs of every round of whole
      1080p frames, states and wants word for word: the renderer's budget
-     (48 rounds of 24 steps) on the static and 3 orbit cameras,
+     (48 rounds of 24 steps) on the static and one orbit camera,
      ``trace_wavefront2``'s default (12 of 48) on the static one;
  26. ``render`` (v2) at 320x176, card vs the plain versions on the CPU:
      0 hit and voxel mismatches, every pixel's sRGB8 within 2/255;
@@ -226,7 +229,37 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      ``build_world_slice`` of the server's nodes; a second client streams
      the window, the first one's ``set_voxel`` echoes to it, and after the
      edit both clients' frames equal the server's;
- 40. the script's total seconds.
+ 40. the band-sharded frames (``parallel/``) at 1280x720 on the 8-chunk
+     world, config2's sun, shadows on: ``sharded_render_frame3`` (32
+     rounds, converged: the unsharded frame equals its 64-round one) and
+     ``sharded_render_frame4`` on meshes of 1, 2 and 6 bands of cuda:0
+     (with more cards, of each, and one band a card): every ``march3``,
+     ``touched4``, ``march_planes4`` and ``shade4`` launch of every band
+     (rows y0 > 0 among them) equals its plain version, the stitched
+     frames equal the unsharded ones word for word; ``ShardedRayTracer``
+     equals ``RayTracer`` and ``sharded_accumulate_step`` (2 samples x 2
+     bands) the host average within 1e-6, on the 4-chunk SVO demo world;
+ 41. an engine session at the engine's defaults (1280x720, a window of
+     30 chunks, the client's pool at its first size of 2^24 nodes, which
+     doubles as it fills): ``EngineApp.host_singleplayer`` on a copy of the
+     bundled "Demo World" (terra, Continents, seed 20260816), its server a
+     child process on the card; the window streams in (chunks/s), the
+     player lands; frames on the fused v4 path (one launch each; plain,
+     shadowed, heatmap, after a break and a place) equal
+     ``march_fused4_ref`` on the builder's tables, the v3 path's launches
+     equal their plain versions, the SVO path draws; at 320x176 the card's
+     frame meets phase 5's bar against a CPU session on the same game
+     state; ``resize_world(40)`` keeps the 27,000 chunks and draws on
+     sparse tables, equal to the plain version, with its hit share beside
+     the dense frame's at the same camera; warm ms of each route and the
+     device's idle share of the v4 route;
+ 42. ``graft_entry.entry()`` against its plain version, and
+     ``dryrun_multichip`` on every card;
+ 43. ``utils.profiling``: ``device_trace`` writes a Chrome trace naming
+     the ``march_fused4`` launch, ``device_memory_stats`` reports the card;
+ 44. the script's total seconds and each phase's (the seconds from the
+     line before a phase's line to it); each group of phases prints its
+     own.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -253,6 +286,10 @@ BENCH_KW = dict(rounds=64, step_cap=500, steps_per_round=256, fused=True,
                 s_seg=4)
 N_ORBIT = 48
 N_ORBIT_16 = 12
+# phases 4, 5, 7 and 8 hold the kernels to their plain versions on the
+# static camera and every CMP_STEP-th orbit camera: one a quadrant (phase
+# 20 on the static camera and the CMP_STEP-th)
+CMP_STEP = N_ORBIT // 4
 WINDOWS = 5
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, FP32 op/s
 HBM_BPS = 3.35e12
@@ -281,7 +318,16 @@ def check(ok, msg):
         raise PhaseError(msg)
 
 
+# seconds of each phase: the time from the line printed before a phase's
+# line to it goes to that phase
+PHASE_S = {}
+_LAST_SAY = [time.perf_counter()]
+
+
 def say(phase, msg):
+    now = time.perf_counter()
+    PHASE_S[phase] = PHASE_S.get(phase, 0.0) + now - _LAST_SAY[0]
+    _LAST_SAY[0] = now
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -454,7 +500,7 @@ def compare_on_cpu(rg_cpu, rg, mats, v, phase, shadows=False, cams=None):
 
     if cams is None:
         static, orbit = bench_cams(v, 320, 180)
-        cams = [static] + orbit[::4]
+        cams = [static] + orbit[::CMP_STEP]
     hit_bad = vox_bad = sh_bad = fl_bad = pk_bad = 0
     within = total = shadowed = 0
     for cam in cams:
@@ -1201,7 +1247,7 @@ def compare_pt_cpu(cpu_worlds, worlds, v, phase):
 
     static, orbit = bench_cams(v, 320, 180, N_ORBIT_PT)
     worst, words, n = 1.0, 0, 0
-    for cam in [static] + orbit[::3]:
+    for cam in [static, orbit[N_ORBIT_PT // 3]]:
         for name in worlds:
             for fn, kw in ((p3.path_trace3, dict(v4=True)),
                            (p4.path_trace_fused4, {})):
@@ -1954,7 +2000,7 @@ def compare_v3_cpu(rg_cpu, rg, mats, v, phase):
     from voxelraytracing_tpu_torch.ops.wavefront3 import render_frame3
 
     static, orbit = bench_cams(v, 320, 180)
-    cams = [static] + orbit[::8]
+    cams = [static, orbit[CMP_STEP]]
     hit_bad = vox_bad = fl_bad = pk_bad = within = total = 0
     for shadows in (False, True):
         for cam in cams:
@@ -2265,17 +2311,17 @@ def v2_tables(rg3, phase):
 
 def compare_march2(rg1, v, phase):
     """Every round of whole 1080p frames, kernel vs plain version: the
-    renderer's budget on the static and 3 orbit cameras, trace_wavefront2's
-    default on the static one."""
+    renderer's budget on the static and one orbit camera,
+    trace_wavefront2's default on the static one."""
     static, orbit = bench_cams(v, WIDTH, HEIGHT)
     with Launches("wavefront2", "march2") as rec:
-        for cam in [static] + orbit[::16]:
+        for cam in (static, orbit[16]):
             v2_trace(rg1, cam, *V2_BUDGET)
         v2_trace(rg1, static, *V2_TRACE_BUDGET)
         torch.cuda.synchronize()
-    n = 4 * V2_BUDGET[0] + V2_TRACE_BUDGET[0]
+    n = 2 * V2_BUDGET[0] + V2_TRACE_BUDGET[0]
     subs = sorted({k["sub_rounds"] for _, k in rec.inputs})
-    say(phase, f"march2 vs march2_ref, round by round: {rec.n} calls (4 "
+    say(phase, f"march2 vs march2_ref, round by round: {rec.n} calls (2 "
         f"1080p frames at {V2_BUDGET[0]}x{V2_BUDGET[1]}, one at "
         f"{V2_TRACE_BUDGET[0]}x{V2_TRACE_BUDGET[1]}; sub-rounds "
         f"{subs}), differing words {rec.bad}, max abs float error "
@@ -2293,7 +2339,7 @@ def compare_v2_cpu(rg1_cpu, rg1, mats, v, phase):
         RenderSettings, WavefrontRenderer, to_srgb8)
 
     static, orbit = bench_cams(v, 320, 176)
-    cams = [static] + orbit[::24]
+    cams = [static, orbit[24]]
     hit_bad = vox_bad = within = total = 0
     worst = 0
     for cam in cams:
@@ -3406,6 +3452,469 @@ def served_world(dp, sp, phase):
         state.stop()
 
 
+# ------------------------------------------- bands, engine, entry, profiling
+
+BAND_SIZE = (1280, 720)
+BAND_MESHES = (1, 2, 6)  # bands of the frame on cuda:0
+V3_BAND_ROUNDS = 32      # converged at 720p (the stitched frame says so)
+ENGINE_W = 30            # the engine's default window, 27,000 chunks
+ENGINE_STREAM_LIMIT_S = 150.0
+ENGINE_SMALL = (320, 176)
+
+
+def band_launches():
+    """Stand-ins holding every launch of the band frames' kernels against
+    their plain versions: ``march3``, ``touched4``, ``march_planes4`` and
+    ``shade4``."""
+    return [Launches("wavefront3", "march3"), Launches("wavefront4", "touched4"),
+            Launches("wavefront4", "march_planes4"),
+            Launches("wavefront4", "shade4")]
+
+
+def band_frames(phase, devices=("cuda:0",)):
+    """The band-sharded frames at 1280x720 on the 8-chunk world, config2's
+    sun, shadows on: ``sharded_render_frame3`` (32 rounds) and
+    ``sharded_render_frame4`` on meshes of 1, 2 and 6 bands of each device
+    in ``devices`` (and, with more than one, one band a device); every
+    launch of every band equals its plain version, the bands at y0 > 0
+    among them, and the stitched frames equal the unsharded ones word for
+    word. Then ``ShardedRayTracer`` against ``RayTracer`` (word for word)
+    and ``sharded_accumulate_step`` (2 samples x 2 bands) against the host
+    average of its samples (1e-6) on the 4-chunk SVO demo world. Returns
+    the ms of the stitched frames."""
+    from voxelraytracing_tpu_torch.models import RayTracer, RenderSettings
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+    from voxelraytracing_tpu_torch.ops.wavefront3 import render_frame3
+    from voxelraytracing_tpu_torch.ops.wavefront4 import (
+        prepare_grid4, render_frame4)
+    from voxelraytracing_tpu_torch.parallel import (
+        ShardedRayTracer, make_mesh, sharded_accumulate_step,
+        sharded_render_frame3, sharded_render_frame4)
+    from voxelraytracing_tpu_torch.world.demo import make_demo_world
+
+    rg, mats, v = build_world(8)
+    static, _ = bench_cams(v, *BAND_SIZE, 0)
+    s = RenderSettings(sun_pos=sun_of(static), shadows=True)
+    kw = dict(sun_pos=s.sun_pos, shadows=True)
+    full3 = render_frame3(rg, static, mats.color, rounds=V3_BAND_ROUNDS,
+                          steps_per_round=128, **kw)
+    full3_more = render_frame3(rg, static, mats.color,
+                               rounds=2 * V3_BAND_ROUNDS, steps_per_round=128,
+                               **kw)
+    check(torch.equal(full3, full3_more), f"the unsharded v3 frame has not "
+          f"converged at {V3_BAND_ROUNDS} rounds")
+    full4 = render_frame4(rg, static, mats.color, prepared=prepare_grid4(rg),
+                          **kw)
+    meshes = [(f"{n} x {d}", [d] * n) for d in devices for n in BAND_MESHES]
+    if len(devices) > 1:
+        meshes.append((f"one band on each of {len(devices)} cards",
+                       list(devices)))
+    out = {}
+    for name, devs in meshes:
+        mesh = make_mesh(n_samples=1, n_rays=len(devs), devices=devs)
+        for tracer, fn, full in (("v3", sharded_render_frame3, full3),
+                                 ("v4", sharded_render_frame4, full4)):
+            recs = band_launches()
+            extra = dict(rounds=V3_BAND_ROUNDS) if tracer == "v3" else {}
+            for r in recs:
+                r.__enter__()
+            try:
+                img = fn(mesh, rg, static, mats.color, s, **extra)
+                torch.cuda.synchronize()
+            finally:
+                for r in recs:
+                    r.__exit__()
+            ran = {r.name: r.n for r in recs}
+            y0s = sorted({float(a[0][21]) for r in recs for a, _ in r.inputs
+                          if r.name in ("march3", "touched4",
+                                        "march_planes4")})
+            bad = sum(r.bad for r in recs)
+            stitched = words_differ(img.to(full.device), full)
+            t = statistics.median(
+                event_ms(lambda i: fn(mesh, rg, static, mats.color, s,
+                                      **extra), 1) for _ in range(3))
+            out[name, tracer] = t
+            say(phase, f"{tracer} bands, {name}, {BAND_SIZE[0]}x"
+                f"{BAND_SIZE[1]} shadowed: launches {ran}, band rows y0 "
+                f"{y0s}, words differing from the plain versions {bad}; "
+                f"stitched vs unsharded frame: differing words {stitched}; "
+                f"{t:.3f} ms a frame (median of 3)")
+            want = {"march3"} if tracer == "v3" else {
+                "touched4", "march_planes4"}
+            check(all(ran[k] >= len(devs) for k in want)
+                  and ran["shade4"] == len(devs),
+                  f"a {tracer} band launched none of its kernels")
+            check(bad == 0, f"a {tracer} band launch disagrees with its "
+                  f"plain version")
+            check(len(devs) == 1 or max(y0s) > 0, "no band at y0 > 0 ran")
+            check(stitched == 0, f"the stitched {tracer} frame differs from "
+                  f"the unsharded one")
+
+    world = make_demo_world(7, 4)
+    w, h = BAND_SIZE
+    cam = CamData.create((30.0, 45.0, 0.0), (64.0, 75.0, 64.0), 70.0, (w, h))
+    ss = RenderSettings(sun_pos=sun_of(cam))
+    ref, _ = RayTracer(mats).render(world, cam, ss)
+    for name, devs in meshes:
+        mesh = make_mesh(n_samples=1, n_rays=len(devs), devices=devs)
+        got = ShardedRayTracer(mats, mesh).render(world, cam, ss)
+        bad = words_differ(got.to(ref.device), ref)
+        say(phase, f"ShardedRayTracer, {name}, {w}x{h}: words differing "
+            f"from RayTracer's frame {bad}")
+        check(bad == 0, "the sharded SVO frame differs from RayTracer's")
+    devs4 = list(devices) * 4 if len(devices) < 4 else list(devices[:4])
+    mesh = make_mesh(n_samples=2, n_rays=2, devices=devs4)
+    step = sharded_accumulate_step(mesh, mats, width=w, band_height=h // 2,
+                                   max_steps=64)
+    acc = step(world.nodes, world.chunk_roots, world.world_min,
+               cam.inv_view, cam.inv_proj, cam.pos, np.float32(0.05))
+    tr = RayTracer(mats, max_steps=64)
+    frames = []
+    for sid in range(2):
+        # the step's shifted origin, in f32 as it computes it
+        eps = np.float32(sid) / np.float32(2) * np.float32(0.05)
+        e = np.asarray(cam.pos, np.float32) + eps
+        cs = CamData.create((30.0, 45.0, 0.0), tuple(e), 70.0, (w, h))
+        frames.append(tr.render(world, cs, RenderSettings())[0])
+    host = torch.stack(frames).mean(dim=0)
+    gap = float((acc.to(host.device) - host).abs().max())
+    say(phase, f"sharded_accumulate_step, 2 samples x 2 bands on "
+        f"{sorted(set(devs4))}, {w}x{h}: max gap to the host average "
+        f"{gap:.3g} (bar 1e-6), finite {bool(torch.isfinite(acc).all())}")
+    check(gap <= 1e-6 and bool(torch.isfinite(acc).all()),
+          "the accumulated frame misses the host average")
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def engine_frame_check(app, what):
+    """The fast-path frame just drawn against the plain version on the
+    builder's tables on the card: ``march_fused4_ref`` (dense or sparse)
+    for the v4 route; differing words of the packed frame."""
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    b = app._fast_builder()
+    s = app.settings
+    args, kw = t4.frame_args(
+        b.grid(), app.camera(), app.materials.color, sky_color=s.sky_color,
+        sun_pos=s.sun_pos, sun_intensity=s.sun_intensity,
+        shadow_ambient=s.shadow_ambient, show_steps=s.show_step_count,
+        shadows=s.shadows, prepared=b.prepared())
+    packed, _ = t4.march_fused4_ref(*args, **kw)
+    return words_differ(app._last_trace.packed, packed)
+
+
+def engine_session(smi, phase):
+    """An engine session at the engine's defaults (1280x720, a window of
+    30 chunks, the client's pool at its first size, doubling as it fills):
+    ``EngineApp.host_singleplayer`` on the bundled respack's
+    "Demo World" (terra, Continents, seed 20260816; a copy in a temporary
+    directory, where the server saves), its server a child process on the
+    card. The window streams in, the player falls to the ground, then
+    frames on the fused v4 path (plain, shadowed, heatmap), the v3 path and
+    the SVO path; a voxel broken and placed, redrawn; card vs a CPU session
+    at 320x176; ``resize_world(40)`` keeping the streamed window, on sparse
+    tables. Each fast-path
+    frame equals its plain version on the builder's tables; warm ms of each
+    route and the device's idle share of the v4 route."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    from voxelraytracing_tpu_torch.client import PlayerInput
+    from voxelraytracing_tpu_torch.engine import EngineApp
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.resources.packs import builtin_respack_path
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    root = shutil.copytree(builtin_respack_path(), f"{tmp}/res")
+    n = ENGINE_W ** 3
+    t0 = time.perf_counter()
+    app = EngineApp.host_singleplayer(root, "Demo World", port=free_port())
+    try:
+        t_up = time.perf_counter() - t0
+        check(app.fast_path and app.device.type == "cuda"
+              and app.resolution == (1280, 720)
+              and app.game.world.size_in_chunks == ENGINE_W,
+              "the engine on the card is not on its fast path at its "
+              "defaults")
+        pool0 = app.game.world.max_nodes
+        t0 = time.perf_counter()
+        while app.game.world.populated_count() < n:
+            check(time.perf_counter() - t0 < ENGINE_STREAM_LIMIT_S,
+                  f"the window did not stream in {ENGINE_STREAM_LIMIT_S} s "
+                  f"({app.game.world.populated_count()} of {n} chunks)")
+            app.update(net_budget_s=0.05)
+            app.update_game()
+        t_stream = time.perf_counter() - t0
+        for _ in range(600):
+            app.update_input(PlayerInput())
+            if app.game.player.on_ground:
+                break
+        check(app.game.player.on_ground, "the player did not land")
+        app.update_game()
+        t0 = time.perf_counter()
+        app.draw_frame()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        b = app._fast_builder()
+        free, total = app.game.world.node_space_status()
+        say(phase, f"engine session: server child up in {t_up:.1f} s; "
+            f"{n} chunks (window of {ENGINE_W}; {total - free} of the "
+            f"client pool's {total} nodes, grown from {pool0}) streamed in "
+            f"{t_stream:.1f} s "
+            f"= {n / t_stream:.1f} chunks/s (generation and SVO builds on the "
+            f"card in the child, localhost TCP, the client's pool on the "
+            f"host); player on the ground at "
+            f"{tuple(round(float(c), 1) for c in app.game.player.pos)}; first "
+            f"frame (builder filled: {n} chunks, tables "
+            f"{'sparse' if b.sparse else 'dense'}) {t_first:.1f} s")
+        counters = (t4.march_fused4, t4.march_planes4, t4.touched4,
+                    t4.shade4)
+
+        def v4_frame(what):
+            for c in counters:
+                c.launches = 0
+            app.draw_frame()
+            torch.cuda.synchronize()
+            ran = [c.launches for c in counters]
+            bad = engine_frame_check(app, what)
+            hits = float(app._last_trace.hit.float().mean())
+            say(phase, f"v4 {what} frame {app.resolution}: launches "
+                f"fused/planes/touched/shade {ran}, words differing from "
+                f"march_fused4_ref on the builder's tables {bad}, hit share "
+                f"{hits:.4f}")
+            check(ran == [1, 0, 0, 0], "the engine's v4 frame is not one "
+                  "fused launch")
+            check(bad == 0, f"the engine's v4 {what} frame differs from "
+                  f"the plain version")
+            return hits
+
+        rot0 = app.game.player.rot.copy()
+        check(v4_frame("plain") > 0.05, "the engine's frame shows no ground")
+        times = {}
+        times["v4"] = median_windows(lambda i: app.draw_frame(), 20)
+        share, dev_ms, n_dev = busy_share(lambda i: app.draw_frame(),
+                                          times["v4"])
+        app.settings = dc.replace(app.settings, shadows=True)
+        v4_frame("shadowed")
+        times["v4 shadowed"] = median_windows(lambda i: app.draw_frame(), 20)
+        app.settings = dc.replace(app.settings, shadows=False)
+        app.toggle_step_heatmap()
+        v4_frame("heatmap")
+        app.toggle_step_heatmap()
+
+        app.fast_tracer = "v3"
+        recs = [Launches("wavefront3", "march3"),
+                Launches("wavefront4", "shade4")]
+        for r in recs:
+            r.__enter__()
+        try:
+            app.draw_frame()
+            torch.cuda.synchronize()
+        finally:
+            for r in recs:
+                r.__exit__()
+        say(phase, f"v3 frame {app.resolution}: march3 launches {recs[0].n}, "
+            f"shade4 {recs[1].n}, words differing from the plain versions "
+            f"launch by launch {recs[0].bad + recs[1].bad}")
+        check(recs[0].n >= 1 and recs[1].n == 1 and not recs[0].bad
+              and not recs[1].bad, "the engine's v3 frame disagrees with its "
+              "plain route")
+        times["v3"] = median_windows(lambda i: app.draw_frame(), 3)
+        app.fast_tracer = "v4"
+
+        app.fast_path = False
+        img = app.draw_frame()
+        torch.cuda.synchronize()
+        svo_hits = float(app._last_trace.hit.float().mean())
+        times["svo"] = median_windows(lambda i: app.draw_frame(), 1)
+        say(phase, f"SVO frame {app.resolution} (RayTracer on the device "
+            f"pool, {app._dev_nodes.numel()} node words): hit share "
+            f"{svo_hits:.4f}, finite {bool(torch.isfinite(img).all())}")
+        check(bool(torch.isfinite(img).all()) and svo_hits > 0.05,
+              "the engine's SVO frame is wrong")
+        app.fast_path = True
+
+        app.game.player.rot = np.asarray([60.0, 30.0, 0.0], np.float32)
+        hit = app.pick()
+        check(hit is not None, "nothing in reach below the player")
+        before = app.game.world.get_voxel(hit[0])
+        check(app.break_voxel(), "break_voxel failed")
+        v4_frame("after break")
+        stone = app.game.voxels.by_name("stone")
+        check(app.place_voxel(stone), "place_voxel failed")
+        v4_frame("after place")
+        say(phase, f"broke {tuple(int(c) for c in hit[0])} (was {before}), "
+            f"placed stone at {tuple(int(c) for c in hit[0] + hit[1])}")
+
+        app.set_resolution(*ENGINE_SMALL)
+        app.draw_frame()
+        card = app._last_trace
+        cpu = EngineApp(app.game, styles=app._styles,
+                        resolution=ENGINE_SMALL, world_size_chunks=ENGINE_W,
+                        fast_path=True, device="cpu")
+        t0 = time.perf_counter()
+        cpu.draw_frame()
+        t_cpu = time.perf_counter() - t0
+        ref = cpu._last_trace
+        hit_bad = int((card.hit.cpu() != ref.hit).sum())
+        both = card.hit.cpu() & ref.hit
+        vox_bad = int((card.voxel.cpu() != ref.voxel)[both].sum())
+        frac = float((channel_diff(card.packed.cpu(), ref.packed) <= 2)
+                     .float().mean())
+        say(phase, f"{ENGINE_SMALL[0]}x{ENGINE_SMALL[1]}, card vs a CPU "
+            f"session on the same game state: hit mismatches {hit_bad}, "
+            f"voxel mismatches {vox_bad}, pixels within 2/255 {frac:.6f}, "
+            f"packed words differing {words_differ(card.packed.cpu(), ref.packed)} "
+            f"(the CPU session's first frame, its builder filled, "
+            f"{t_cpu:.1f} s)")
+        check(hit_bad == 0 and vox_bad == 0 and frac == 1.0,
+              "the engine's card frame misses the bar against the CPU's")
+        del cpu
+        app.set_resolution(1280, 720)
+
+        # the 40-chunk window keeps the streamed 30-chunk one and requests
+        # nothing more: the sparse tables hold the 27,000 chunks
+        app.game.player.rot = rot0
+        dense_hits = v4_frame("dense, before the resize")
+        real_req = app.game.request_missing_chunks
+        app.game.request_missing_chunks = lambda: None
+        app.resize_world(40)
+        app.game.request_missing_chunks = real_req
+        sp = t4.march_fused4.launches
+        t0 = time.perf_counter()
+        app.draw_frame()
+        torch.cuda.synchronize()
+        t_sparse = time.perf_counter() - t0
+        bad = engine_frame_check(app, "sparse")
+        sparse_hits = float(app._last_trace.hit.float().mean())
+        sb = app._fast_builder()
+        kept = app.game.world.populated_count()
+        say(phase, f"resize_world(40): sparse tables {sb.sparse} "
+            f"({sb.sparse_tables_mb():.1f} MB, {kept} chunks kept; first "
+            f"frame, the builder filled, {t_sparse:.1f} s), fused launches "
+            f"{t4.march_fused4.launches - sp}, words differing from "
+            f"march_fused4_ref (sparse) {bad}, hit share {sparse_hits:.4f} "
+            f"(the dense frame's at the same camera {dense_hits:.4f})")
+        check(sb.sparse and kept == n and bad == 0
+              and t4.march_fused4.launches - sp == 1 and sparse_hits > 0.05,
+              "the engine's sparse frame is wrong")
+        say(phase, "warm frame ms at 1280x720 (CUDA events, median of "
+            "windows): " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
+            + (f"; device idle share of the v4 route "
+               f"{1.0 - share:.4f} ({n_dev} kernels and copies, "
+               f"{dev_ms:.3f} ms on the device, torch.profiler)"
+               if share is not None else "; device idle share not measured "
+               "(torch.profiler saw no device time)") + f"; {smi}")
+        return dict(times, stream_s=t_stream, chunks=n,
+                    idle=None if share is None else 1.0 - share)
+    finally:
+        app.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def plain_route(module, names):
+    """While active, the wrappers ``names`` of the port's ``ops.<module>``
+    are their plain versions (``<name>_ref``)."""
+    import contextlib
+    import importlib
+
+    mod = importlib.import_module(f"voxelraytracing_tpu_torch.ops.{module}")
+
+    @contextlib.contextmanager
+    def swap():
+        real = {k: getattr(mod, k) for k in names}
+        for k in names:
+            setattr(mod, k, getattr(mod, k + "_ref"))
+        try:
+            yield
+        finally:
+            for k, f in real.items():
+                setattr(mod, k, f)
+
+    return swap()
+
+
+def entry_points(phase):
+    """``graft_entry.entry()`` on the card against its plain version (the
+    same frame with the plain ``march_planes4``/``shade4``, every launch
+    also held alone), and ``dryrun_multichip`` on every card."""
+    from voxelraytracing_tpu_torch import graft_entry
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+
+    fn, args = graft_entry.entry()
+    recs = [Launches("wavefront4", k)
+            for k in ("touched4", "march_planes4", "shade4")]
+    for r in recs:
+        r.__enter__()
+    try:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        for r in recs:
+            r.__exit__()
+    with plain_route("wavefront4", ("march_planes4", "shade4")):
+        ref = fn(*args)
+    bad = words_differ(out, ref)
+    say(phase, f"entry(): {tuple(out.shape)} {out.dtype} on {out.device}, "
+        f"mean {float(out.mean()):.6f}; launches "
+        f"{ {r.name: r.n for r in recs} }, each vs its plain version "
+        f"{sum(r.bad for r in recs)} words differ; vs the plain frame "
+        f"{bad} words differ")
+    check(out.shape == (128, 128) and out.device.type == "cuda"
+          and all(r.n == 1 for r in recs) and bad == 0
+          and not sum(r.bad for r in recs), "entry() is wrong on the card")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    img, img3, img4 = graft_entry.dryrun_multichip(n)
+    torch.cuda.synchronize()
+    say(phase, f"dryrun_multichip({n}): accumulated {tuple(img.shape)}, v3 "
+        f"bands {tuple(img3.shape)}, v4 bands {tuple(img4.shape)} on "
+        f"{img.device}, all finite "
+        f"{bool(torch.isfinite(img).all())}, {time.perf_counter() - t0:.1f} s")
+    check(bool(torch.isfinite(img).all()), "dryrun_multichip's frame is not "
+          "finite")
+
+
+def profiling(phase):
+    """``device_trace`` around a fused frame writes a Chrome trace naming
+    the ``march_fused4`` launch; ``device_memory_stats`` reports the
+    card."""
+    import tempfile
+
+    from voxelraytracing_tpu_torch.ops.wavefront4 import (
+        prepare_grid4, render_frame4)
+    from voxelraytracing_tpu_torch.utils.profiling import (
+        device_memory_stats, device_trace, trace_path)
+
+    rg, mats, v = build_world(4)
+    static, _ = bench_cams(v, WIDTH, HEIGHT, 0)
+    prep = prepare_grid4(rg)
+    render_frame4(rg, static, mats.color, prepared=prep, fused=True)
+    with tempfile.TemporaryDirectory() as d:
+        with device_trace(d):
+            render_frame4(rg, static, mats.color, prepared=prep, fused=True)
+        events = json.load(open(trace_path(d)))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    fused = [e["name"] for e in kernels if "march_fused4" in e["name"]]
+    mem = device_memory_stats()
+    say(phase, f"device_trace: {len(events)} events, {len(kernels)} "
+        f"kernels, the march_fused4 launches named: {fused}")
+    say(phase, f"device_memory_stats: {mem}")
+    check(len(fused) == 1, "the trace does not name the march_fused4 launch")
+    check(len(mem) == torch.cuda.device_count() and mem[0]["bytes_limit"] > 0
+          and mem[0]["bytes_in_use"] > 0, "device_memory_stats does not "
+          "report the card")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3440,6 +3949,7 @@ def main():
         for ln in ptxas_report(name):
             say(2, f"{name}.cu {ln}")
 
+    t_group = time.perf_counter()
     t0 = time.perf_counter()
     rg, mats, v = build_world(8)
     prep = prepare_grid4(rg)
@@ -3449,13 +3959,13 @@ def main():
         f"{prep.sw_cont.numel() * 4 / 1e6:.1f} MB")
     lut = color_lut_rows(mats.color).to(rg.sw_solid.device)
     static, orbit = bench_cams(v, WIDTH, HEIGHT)
-    err = compare_on_card(rg, prep, lut, [static] + orbit, 4)
+    err = compare_on_card(rg, prep, lut, [static] + orbit[::CMP_STEP], 4)
     rg_cpu = build_world(8, device="cpu")[0]
     compare_on_cpu(rg_cpu, rg, mats, v, 5)
     errs = {}
     for size in SIZES:
         s, o = bench_cams(v, *size)
-        errs[size] = compare_shadows(rg, prep, lut, [s] + o, 7)
+        errs[size] = compare_shadows(rg, prep, lut, [s] + o[::CMP_STEP], 7)
     compare_nan_direction(rg, prep, lut, static, 7)
     compare_mark_edges(rg, prep, lut, v, 7)
     compare_on_cpu(rg_cpu, rg, mats, v, 8, shadows=True)
@@ -3471,10 +3981,13 @@ def main():
         f"{time.perf_counter() - t0:.1f} s, sw_cont "
         f"{prep16.sw_cont.numel() * 4 / 1e6:.1f} MB")
     s16, o16 = bench_cams(v16, WIDTH, HEIGHT, N_ORBIT_16)
-    err = max(err, compare_on_card(rg16, prep16, lut, [s16] + o16, 4))
+    err = max(err, compare_on_card(
+        rg16, prep16, lut, [s16] + o16[::N_ORBIT_16 // 4], 4))
     time_primary(rg16, prep16, lut, mats, v16, 11, N_ORBIT_16)
     del rg16, prep16
     torch.cuda.empty_cache()
+    say(11, f"phases 3-11 took {time.perf_counter() - t_group:.1f} s")
+    t_group = time.perf_counter()
 
     # the path tracers on the 8-chunk world, demo and mirror tables
     mirror = make_material_table(256, MIRROR)
@@ -3483,10 +3996,13 @@ def main():
     cpu_worlds = {"demo": (rg_cpu, mats),
                   "mirror": (build_world(8, "cpu", mirror)[0], mirror)}
     static, orbit = bench_cams(v, WIDTH, HEIGHT, N_ORBIT_PT)
-    pt_err, mat_err = compare_pt(worlds, [static] + orbit, 12)
+    pt_err, mat_err = compare_pt(worlds, [static, orbit[N_ORBIT_PT // 3]],
+                                 12)
     compare_pt_cpu(cpu_worlds, worlds, v, 13)
     pt_counts = count_pt_main_path(rg, mats, orbit[:10], 14)
     tp = time_pt(rg, mats, static, orbit, 15)
+    say(15, f"phases 12-15 took {time.perf_counter() - t_group:.1f} s")
+    t_group = time.perf_counter()
 
     # the v3 march on the 8-chunk world
     v3_err = compare_march3(rg, lut, v, 19)
@@ -3494,6 +4010,7 @@ def main():
     compare_v3_converged(rg, prep, lut, v, 21)
     v3_counts = count_v3_routes(rg, mats, lut, v, 22)
     tv3 = time_v3(rg, mats, lut, v, 23)
+    say(23, f"phases 19-23 took {time.perf_counter() - t_group:.1f} s")
 
     # the v2 march on the 8-chunk world's v1 tables
     t_v2 = time.perf_counter()
@@ -3520,9 +4037,12 @@ def main():
     tsp = time_sparse(strip, b80, lut, 18)
     del b80
     torch.cuda.empty_cache()
+    say(18, f"phases 16-18 took {time.perf_counter() - t0:.1f} s")
 
     # the primitive probes at the JAX scripts' shapes
+    t0 = time.perf_counter()
     probe_entries = phase_probes(29)
+    say(29, f"phase 29 took {time.perf_counter() - t0:.1f} s")
 
     # config2/config3's preset world: device worldgen, the SVO build and
     # the three frames on it; the native library
@@ -3554,6 +4074,20 @@ def main():
     served_world(dp, sp, 39)
     say(39, f"phases 34-39 took {time.perf_counter() - t_svo:.1f} s")
     torch.cuda.empty_cache()
+
+    # the band-sharded frames, an engine session, the entry points and
+    # the profiling tools
+    t_new = time.perf_counter()
+    band_frames(40)
+    if torch.cuda.device_count() > 1:
+        band_frames(40, tuple(f"cuda:{i}"
+                              for i in range(torch.cuda.device_count())))
+    torch.cuda.empty_cache()
+    engine_session(card, 41)
+    torch.cuda.empty_cache()
+    entry_points(42)
+    profiling(43)
+    say(43, f"phases 40-43 took {time.perf_counter() - t_new:.1f} s")
 
     px = WIDTH * HEIGHT
     b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,
@@ -3676,7 +4210,9 @@ def main():
                          plain_ms=k["plain_ms"], bound_ms=bms, bound_by=by,
                          library_ms=k.get("library_ms")))
     print(json.dumps({"kernels": line}))
-    say(40, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(44, f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    say(44, "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items())))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The PyTorch port stands without JAX, builds nothing at import, and its
 chip smoke script refuses to run without a CUDA card."""
 
+import os
 import pkgutil
 import re
 import shutil
@@ -75,6 +76,21 @@ def test_every_module_imports_without_jax():
             "voxelraytracing_tpu_torch.client.game",
             "voxelraytracing_tpu_torch.server.state",
             "voxelraytracing_tpu_torch.server.persistence",
+            # the engine, the band-sharded render, the tools, profiling
+            # and the entry points
+            "voxelraytracing_tpu_torch.engine",
+            "voxelraytracing_tpu_torch.engine.app",
+            "voxelraytracing_tpu_torch.engine.input",
+            "voxelraytracing_tpu_torch.engine.ui",
+            "voxelraytracing_tpu_torch.parallel",
+            "voxelraytracing_tpu_torch.parallel.render",
+            "voxelraytracing_tpu_torch.tools",
+            "voxelraytracing_tpu_torch.tools.installer",
+            "voxelraytracing_tpu_torch.tools.servercli",
+            "voxelraytracing_tpu_torch.tools.client_cli",
+            "voxelraytracing_tpu_torch.tools.web_viewer",
+            "voxelraytracing_tpu_torch.utils.profiling",
+            "voxelraytracing_tpu_torch.graft_entry",
             } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -253,6 +269,36 @@ def test_entry_points_default_to_the_card():
     # helpers take the device of their caller's tensors
     tile_valid = inspect.signature(wavefront3._tile_valid).parameters
     assert tile_valid["device"].default is inspect.Parameter.empty
+    # the engine, its server child, the server CLI's worldgen and the entry
+    # points; the mesh defaults to every card, and the sharded frames run
+    # on their mesh's devices
+    from voxelraytracing_tpu_torch import graft_entry
+    from voxelraytracing_tpu_torch.engine import EngineApp, ServerProgram
+    from voxelraytracing_tpu_torch.parallel import render
+    from voxelraytracing_tpu_torch.tools import servercli
+
+    for fn in (EngineApp, ServerProgram.host, graft_entry.entry,
+               graft_entry.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert inspect.signature(servercli.run_server).parameters[
+        "device"].default is None
+    env = servercli.DEVICE_ENV
+    saved = os.environ.pop(env, None)
+    try:
+        assert servercli.server_device() == "cuda"
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+    assert inspect.signature(render.make_mesh).parameters[
+        "devices"].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            render.make_mesh()
+        with pytest.raises(RuntimeError, match="CUDA cards"):
+            graft_entry.dryrun_multichip(1)
+    for fn in (render.ShardedRayTracer.render, render.sharded_accumulate_step,
+               render.sharded_render_frame3, render.sharded_render_frame4):
+        assert "device" not in inspect.signature(fn).parameters, fn
 
 
 def test_v2_path_runs_on_its_grids_device():

@@ -673,6 +673,50 @@ def test_march3_kernel_tail_launches(card_world):
     assert tails and any(a[6] is not None for a in tails)
 
 
+@pytest.mark.parametrize("y0", [16, 40])
+def test_band_launches_equal_plain_versions(card_world, y0):
+    """A band of a taller frame, as the sharded frames draw it: the rows
+    ``y0 .. y0 + 16`` of a shadowed 192x64 frame (``scal[21]`` = y0,
+    ``scal[5]`` = 2/64). Every launch of the v4 band (``touched4``,
+    ``march_planes4`` of the camera rays and of the shadow bundle,
+    ``shade4``) and of the v3 band (``march3`` a round, ``shade4``) equals
+    its plain version word for word, and each band equals those rows of
+    the whole frame."""
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+
+    rg, prep, mats = card_world
+    cam = CamData.create((45.0, 45.0, 0.0), CAMS[0][1], 70.0, (192, 64))
+    kw = dict(sky_color=(0.81, 0.93, 1.0), sun_pos=SUN, sun_intensity=4.0,
+              shadow_ambient=0.4)
+    with _Both(t4, "touched4") as marks, _Both(t4, "march_planes4") as planes, \
+            _Both(t4, "shade4") as shade:
+        row, args, fkw = t4._frame_inputs(
+            rg, cam, mats.color, show_steps=False, shadows=True, rounds=64,
+            steps_per_round=128, step_cap=None, prepared=prep, y0=y0,
+            band_height=16, **kw)
+        img4, fl4 = t4._render_frame4(row, *args, **fkw)
+    assert len(marks.calls) == len(planes.calls) == 2
+    assert len(shade.calls) == 1
+    origin, lut, row3 = t3._frame_row3(rg, cam, mats.color, y0=y0, **kw)
+    with _Both(t3, "march3") as m3, _Both(t4, "shade4") as shade3:
+        img3, fl3, _ = t3._render_frame(
+            rg, origin, cam, lut, row3, rounds=32, sub_rounds=16,
+            step_cap=None, shadows=True, show_steps=False, cache_p=None,
+            cache_s=None, compact=True, y0=y0, band_height=16)
+    assert m3.calls and float(m3.calls[0][0][0][21]) == y0
+    assert len(shade3.calls) == 1
+    full4 = t4.render_frame4(rg, cam, mats.color, shadows=True,
+                             prepared=prep, with_flags=True, **kw)
+    full3 = t3.render_frame3(rg, cam, mats.color, shadows=True, rounds=32,
+                             steps_per_round=128, with_flags=True, **kw)
+    band = slice(y0, y0 + 16)
+    for (img, fl), (fimg, ffl) in (((img4, fl4), full4),
+                                   ((img3, fl3), full3)):
+        assert torch.equal(img, fimg[band]) and torch.equal(fl, ffl[band])
+    hit = (fl4 >> 1) & 1
+    assert bool(hit.any()) and not bool(hit.all())
+
+
 def test_march3_rejects_bad_inputs(card_world):
     from voxelraytracing_tpu_torch.ops import wavefront3 as t3
 

@@ -211,3 +211,33 @@ def test_smem_optin_once_per_device(host_kernel):
     shared memory once on each device, none on a repeat launch, and never
     inside a CUDA-graph capture."""
     check_once_per_device(host_kernel, (0, 1))
+
+
+def test_band_every_launch(host_kernel, world, tmp_path):
+    """Every launch of a band of a taller frame, as
+    ``sharded_render_frame3`` draws it: the rows 16 .. 32 of a 128x64
+    frame (``scal[21]`` = 16, ``scal[5]`` = 2/64), shadowed, camera rays
+    then the band's shadow bundle; the band's frame equals those rows of
+    the whole converged frame."""
+    rg, mats = world
+    cam = CamData.create((45.0, 45.0, 0.0), CAMS[0][1], 70.0, (128, 64))
+    origin, lut, row = t3._frame_row3(
+        rg, cam, mats.color, sky_color=(0.81, 0.93, 1.0), sun_pos=SUN,
+        sun_intensity=4.0, shadow_ambient=0.4, y0=16)
+    out = {}
+
+    def band():
+        out["band"] = t3._render_frame(
+            rg, origin, cam, lut, row, rounds=32, sub_rounds=16,
+            step_cap=None, shadows=True, show_steps=False, cache_p=None,
+            cache_s=None, compact=True, y0=16, band_height=16)
+
+    calls = _recorded(band)
+    assert calls[0][0][0][21] == 16.0 and calls[0][0][0][26] == 2.0
+    assert any(a[6] is not None for a, _, _ in calls)
+    bad, steps = _held(host_kernel, tmp_path, calls)
+    assert bad == 0 and steps > 1000
+    full = t3.render_frame3(rg, cam, mats.color, sun_pos=SUN, shadows=True,
+                            rounds=32, steps_per_round=128, with_flags=True)
+    assert torch.equal(out["band"][0], full[0][16:32])
+    assert torch.equal(out["band"][1], full[1][16:32])

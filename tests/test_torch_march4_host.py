@@ -191,3 +191,32 @@ def test_kernel_source_on_a_34_chunk_scene(host_kernel, tmp_path):
         assert np.array_equal(got[1], flags.numpy())
         steps += int(((flags >> 5) & 0xFFF).sum())
     assert steps > 10_000  # long rays across the empty windows
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_kernel_source_on_a_band(host_kernel, worlds, tmp_path, sparse,
+                                 shadows):
+    """A band of a taller frame, as the sharded frames draw it: the rows
+    24 .. 40 of a 72x64 frame (``scal[21]`` = 24, ``scal[5]`` = 2/64).
+    The kernel equals the plain version word for word, and the band equals
+    those rows of the whole frame."""
+    grid, prep = worlds[sparse]
+    cam = CamData.create((45.0, 45.0, 0.0), CAMS[0][1], 70.0, (72, 64))
+    colors = demo.demo_materials().color
+    kw = dict(sky_color=(0.81, 0.93, 1.0), sun_pos=SUN, sun_intensity=4.0,
+              shadow_ambient=0.4, show_steps=False, shadows=shadows,
+              rounds=64, steps_per_round=128, step_cap=500, prepared=prep)
+    row, args, fkw = t4._frame_inputs(grid, cam, colors, y0=24,
+                                      band_height=16, **kw)
+    assert row[21] == 24.0 and row[5] == np.float32(2.0) / np.float32(64.0)
+    args = (torch.from_numpy(row), *args)
+    got = _run_host(host_kernel, tmp_path, args, fkw)
+    packed, flags = t4.march_fused4_ref(*args, **fkw)
+    assert np.array_equal(got[0], packed.numpy())
+    assert np.array_equal(got[1], flags.numpy())
+    hit = (flags >> 1) & 1
+    assert bool(hit.any()) and not bool(hit.all())
+    fargs, fkw = t4.frame_args(grid, cam, colors, **kw)
+    full, ffl = t4.march_fused4_ref(*fargs, **fkw)
+    assert torch.equal(packed, full[24:40]) and torch.equal(flags, ffl[24:40])

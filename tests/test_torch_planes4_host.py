@@ -379,3 +379,35 @@ def test_bundle_marks_on_hand_made_rays(host_kernel, worlds, tmp_path):
     assert marks.tolist() == [[1, 0, 0], [0, 0, 0]]
     assert bool(ts[:8, 16:32].isnan().all())
     assert not bool(((fl[:8, 16:32] >> 5) & 0xFFF).any())
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_camera_marks_and_planes_on_a_band(host_kernel, worlds, tmp_path,
+                                           sparse):
+    """A band of a taller frame, as ``sharded_render_frame4`` draws it: the
+    rows 24 .. 40 of a 72x64 frame (``scal[21]`` = 24, ``scal[5]`` =
+    2/64). The camera marks, the camera planes and the planes of the
+    band's shadow bundle equal the plain versions word for word; the
+    band's camera planes equal those rows of the whole frame's."""
+    grid, prep = worlds[sparse]
+    cam = CamData.create((45.0, 45.0, 0.0), CAMS[0][1], 70.0, (72, 64))
+    row, args, kw = t4._frame_inputs(
+        grid, cam, demo.demo_materials().color, sky_color=(0.81, 0.93, 1.0),
+        sun_pos=SUN, sun_intensity=4.0, shadow_ambient=0.4, show_steps=False,
+        shadows=True, rounds=64, steps_per_round=128, step_cap=500,
+        prepared=prep, y0=24, band_height=16)
+    assert row[21] == 24.0 and kw["height"] == 16
+    tables = (torch.from_numpy(row), args[0], args[2], args[3])
+    bad, (ts, fl, wa, we) = _held(host_kernel, tmp_path, tables, (), 16, 72,
+                                  kw["sparse_ns"])
+    bundle = t4._shadow_prep4(ts, fl, row)
+    bad2, shadow = _held(host_kernel, tmp_path, tables, bundle, 16, 72,
+                         kw["sparse_ns"])
+    assert bad == 0 and bad2 == 0
+    hit = (fl >> 1) & 1
+    assert bool(hit.any()) and not bool(hit.all())
+    assert bool(((shadow[1] >> 1) & 1).any())
+    ftables, h, w, sp = _frame(grid, prep, cam)
+    full = t4.march_planes4_ref(*ftables, height=h, width=w, sparse_ns=sp)
+    for a, b in zip((ts, fl, wa, we), full):
+        assert torch.equal(a, b[24:40])

@@ -134,6 +134,27 @@ class ClientWorld:
     def node_space_status(self):
         return self.alloc.status()
 
+    def grow_pool(self, max_nodes):
+        """Extend the node pool to ``max_nodes``: the chunks keep their
+        spans and the new nodes join the free tail."""
+        max_nodes = int(max_nodes)
+        if max_nodes <= self.max_nodes:
+            return
+        nodes = np.zeros(max_nodes, dtype=np.int32)
+        nodes[: self.max_nodes] = self.nodes
+        self.alloc.free_chunk(self.max_nodes, max_nodes - self.max_nodes)
+        self.alloc.max_nodes = self.max_nodes = max_nodes
+        self.nodes = nodes
+
+    def _alloc(self, n):
+        """A span for ``n`` nodes and their free tail; a full pool
+        doubles first."""
+        while True:
+            try:
+                return self.alloc.alloc_chunk(n)
+            except MemoryError:
+                self.grow_pool(2 * self.max_nodes)
+
     # ------------------------------------------------------------ chunks
 
     def create_chunk(self, cpos, chunk_nodes):
@@ -153,7 +174,7 @@ class ClientWorld:
         else:
             if old is not None:
                 self.alloc.free_chunk(old.start, old.end - old.start)
-            start, end = self.alloc.alloc_chunk(n)
+            start, end = self._alloc(n)
         self.nodes[start : start + n] = chunk_nodes.astype(np.int32)
         chunk = Chunk(start, end, n)
         self.chunks[cpos] = chunk
@@ -210,7 +231,7 @@ class ClientWorld:
         data = self.nodes[chunk.start : chunk.start + used].copy()
         self.chunks.pop(cpos)
         self.alloc.free_chunk(chunk.start, old_len)
-        start, end = self.alloc.alloc_chunk(used + CHUNK_INIT_FREE_MEM)
+        start, end = self._alloc(used + CHUNK_INIT_FREE_MEM)
         self.nodes[start : start + used] = data
         # Fresh tail allocator: free holes inside the used prefix are
         # abandoned until the next full chunk rebuild replaces the span.

@@ -1070,7 +1070,8 @@ def empty_frame_cache(width, height, device="cuda"):
 def _trace_frame(rg, origin, inv_view, inv_proj, rays=None, active0=None,
                  cache=None, rounds=16, step_cap=None, *, width, height,
                  sub_rounds, resolve_ids="palette", raw_out=False,
-                 return_cache=False, lookahead=1, compact=True):
+                 return_cache=False, lookahead=1, compact=True,
+                 full_height=None, y0=0.0):
     """The v3 round loop of one frame (wavefront3.py:_trace_frame).
 
     Camera rays from ``origin`` (world-local) and the camera matrices, or
@@ -1086,7 +1087,9 @@ def _trace_frame(rg, origin, inv_view, inv_proj, rays=None, active0=None,
 
     ``raw_out=True``: the tiled planes ``(ts, fl, wa, we)`` [T,128]; else
     a :class:`WavefrontResult` in image order. ``return_cache`` adds the
-    token ``(wc_ids, sc_ids, hist)``."""
+    token ``(wc_ids, sc_ids, hist)``. ``full_height``/``y0``: camera rays
+    of the horizontal band of rows ``y0 .. y0 + height`` of a
+    ``full_height``-row frame (bundles ignore them)."""
     f32, i32 = torch.float32, torch.int32
     sub_steps = 8
     dev = rg.sw_solid.device
@@ -1101,7 +1104,8 @@ def _trace_frame(rg, origin, inv_view, inv_proj, rays=None, active0=None,
         ns += 1
     nw = ns // 4
     v = int(rg.size_voxels)
-    scal = _cam_scal(origin, inv_view, inv_proj, v, width, height, 0.0)
+    scal = _cam_scal(origin, inv_view, inv_proj, v, width,
+                     height if full_height is None else full_height, y0)
     sw_cont = _sw_cont3(rg)
     wmeta = rg.wmeta
     valid = _tile_valid(tx, ty, T, dev)
@@ -1429,14 +1433,18 @@ def trace_wavefront3_rays(rg: RenderGrid3, origins, dirs, active, *, width,
 
 
 def _render_frame(rg, origin, cam, lut, row, *, rounds, sub_rounds,
-                  step_cap, shadows, show_steps, cache_p, cache_s, compact):
+                  step_cap, shadows, show_steps, cache_p, cache_s, compact,
+                  y0=0.0, band_height=None):
     """Primary trace, optional hard-shadow trace and shade of one v3 frame
     (wavefront3.py:_render_frame :2079). ``row`` is the host f32[43] row
-    of :func:`~.wavefront4._shade_params`. Returns the packed RGBA8 and
-    flags images [H, W] and the token pair."""
+    of :func:`_frame_row3`. With ``band_height``, the band of rows ``y0 ..
+    y0 + band_height`` of the camera's frame (``row`` made for that band).
+    Returns the packed RGBA8 and flags images [H, W] (H the band's height)
+    and the token pair."""
     from .wavefront4 import _shadow_rays, _split_shade_row, shade4
 
-    width, height = cam.proj_size
+    width, full_height = cam.proj_size
+    height = full_height if band_height is None else band_height
     tx, ty = width // TILE_W, height // TILE_H
     nsx, _, T = _sb_dims(tx, ty)
     dev = rg.sw_solid.device
@@ -1445,7 +1453,7 @@ def _render_frame(rg, origin, cam, lut, row, *, rounds, sub_rounds,
               compact=compact)
     (ts, fl, wa, we), tok_p = _trace_frame(
         rg, origin, cam.inv_view, cam.inv_proj, cache=cache_p,
-        rounds=rounds, **kw)
+        rounds=rounds, full_height=full_height, y0=y0, **kw)
     sh = torch.zeros_like(fl)
     tok_s = tok_p
     if shadows:
@@ -1471,6 +1479,31 @@ def _render_frame(rg, origin, cam, lut, row, *, rounds, sub_rounds,
     return img, untile(fl), (tok_p, tok_s)
 
 
+def _frame_row3(rg, cam, materials_color, *, world_min=None, sky_color,
+                sun_pos, sun_intensity, shadow_ambient, y0=0.0):
+    """``(origin, lut, row)`` of a v3 frame: the world-local camera, the
+    colour LUT [6, 128] on the grid's device and the host f32[43] row of
+    :func:`~.wavefront4._shade_params` (``_cam_scal`` of the camera's full
+    frame, with the band offset ``y0``)."""
+    from .wavefront4 import _shade_params
+
+    width, height = cam.proj_size
+    wm = _host_f32(rg.world_min if world_min is None else world_min)
+    origin = np.asarray(cam.pos, np.float32) - wm
+    sun_local = np.asarray(sun_pos, np.float32) - wm
+    if getattr(materials_color, "shape", None) == (6, 128):
+        lut = torch.as_tensor(materials_color)
+    else:
+        lut = color_lut_rows(materials_color)
+    lut = lut.to(device=rg.sw_solid.device, dtype=torch.float32).contiguous()
+    row = _shade_params(
+        _cam_scal(origin, cam.inv_view, cam.inv_proj, int(rg.size_voxels),
+                  width, height, y0),
+        origin, sun_local, sky_color=sky_color, sun_intensity=sun_intensity,
+        shadow_ambient=shadow_ambient)
+    return origin, lut, row
+
+
 def render_frame3(rg: RenderGrid3, cam, materials_color, *, world_min=None,
                   sky_color=(0.81, 0.93, 1.0), sun_pos=(0.0, 10_000.0, 0.0),
                   sun_intensity=4.0, shadows=False, shadow_ambient=0.4,
@@ -1489,27 +1522,16 @@ def render_frame3(rg: RenderGrid3, cam, materials_color, *, world_min=None,
     pair of :func:`trace_wavefront3` (without shadows the shadow token is
     the primary one). ``materials_color``: [n,3] colours or a
     :func:`color_lut_rows` result. ``interpret`` is ignored."""
-    from .wavefront4 import _log, _shade_params
+    from .wavefront4 import _log
 
     del interpret
-    width, height = cam.proj_size
     if not rg.palettes_ok:
         _log.warning(
             "rendering with overflowed subwindow palettes: a few voxels in "
             ">16-solid-id regions take the most-frequent entry's color")
-    dev = rg.sw_solid.device
-    wm = _host_f32(rg.world_min if world_min is None else world_min)
-    origin = np.asarray(cam.pos, np.float32) - wm
-    sun_local = np.asarray(sun_pos, np.float32) - wm
-    if getattr(materials_color, "shape", None) == (6, 128):
-        lut = torch.as_tensor(materials_color)
-    else:
-        lut = color_lut_rows(materials_color)
-    lut = lut.to(device=dev, dtype=torch.float32).contiguous()
-    row = _shade_params(
-        _cam_scal(origin, cam.inv_view, cam.inv_proj, int(rg.size_voxels),
-                  width, height, 0.0),
-        origin, sun_local, sky_color=sky_color, sun_intensity=sun_intensity,
+    origin, lut, row = _frame_row3(
+        rg, cam, materials_color, world_min=world_min, sky_color=sky_color,
+        sun_pos=sun_pos, sun_intensity=sun_intensity,
         shadow_ambient=shadow_ambient)
     cache_p = cache_s = None
     if cache is not None:

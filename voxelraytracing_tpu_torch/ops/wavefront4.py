@@ -900,11 +900,14 @@ shade4.launches = 0  # kernel launches since the last reset
 # ------------------------------------------------------------------- frame
 
 
-def _scal_row(rg, origin, inv_view, inv_proj, width, height, step_cap):
+def _scal_row(rg, origin, inv_view, inv_proj, width, height, step_cap,
+              full_height=None, y0=0.0):
     """Host f32[43] scalar row: ``_cam_scal`` + step cap, init flag and
-    tile counts at 23-26, zeros after."""
+    tile counts at 23-26, zeros after. ``full_height``/``y0``: the rows
+    ``y0 .. y0 + height`` of a ``full_height``-row frame (a band)."""
     scal = _cam_scal(origin, inv_view, inv_proj, int(rg.size_voxels),
-                     width, height, 0.0)
+                     width, height if full_height is None else full_height,
+                     y0)
     scal[23] = 0.0 if step_cap is None else float(step_cap)
     scal[24] = 1.0
     scal[25] = width // TILE_W
@@ -913,18 +916,21 @@ def _scal_row(rg, origin, inv_view, inv_proj, width, height, step_cap):
 
 
 def _frame_scal(rg, cam, *, sky_color, sun_pos, sun_intensity,
-                shadow_ambient, step_cap, sub_rounds):
+                shadow_ambient, step_cap, sub_rounds, y0=0.0,
+                band_height=None):
     """Host f32[43] scalar row of the fused frame: :func:`_scal_row`, then
     the shade parameters at the JAX kernel's indices (27-29 sun
     direction, 30 intensity, 31-33 sky, 34-36 sun position, 37 shadow
-    ambient)."""
+    ambient). With ``band_height``, the row of the band ``y0 .. y0 +
+    band_height`` of the camera's frame."""
     f32 = np.float32
-    width, height = cam.proj_size
+    width, full_height = cam.proj_size
+    height = full_height if band_height is None else band_height
     wm = rg.world_min.cpu().numpy().astype(f32)
     origin = np.asarray(cam.pos, f32) - wm
     sun_local = np.asarray(sun_pos, f32) - wm
     scal = _scal_row(rg, origin, cam.inv_view, cam.inv_proj, width, height,
-                     step_cap)
+                     step_cap, full_height=full_height, y0=y0)
     scal[22] = sub_rounds
     return _shade_params(scal, origin, sun_local, sky_color=sky_color,
                          sun_intensity=sun_intensity,
@@ -969,18 +975,22 @@ def _frame_dims(width, height):
 
 def _frame_inputs(rg, cam, materials_color, *, sky_color, sun_pos,
                   sun_intensity, shadow_ambient, show_steps, shadows, rounds,
-                  steps_per_round, step_cap, prepared):
-    """``(scal, args, kw)`` of one frame: the host f32[43] scalar row
-    (:func:`_frame_scal`), the rest of :func:`frame_args`' arguments on
-    the grid's device, and its keywords."""
+                  steps_per_round, step_cap, prepared, y0=0.0,
+                  band_height=None):
+    """``(scal, args, kw)`` of one frame, or of the band ``y0 .. y0 +
+    band_height`` of it: the host f32[43] scalar row (:func:`_frame_scal`),
+    the rest of :func:`frame_args`' arguments on the grid's device, and
+    its keywords."""
     width, height = cam.proj_size
+    if band_height is not None:
+        height = band_height
     device = rg.sw_solid.device
     sub_steps = 8
     sub_rounds = max(steps_per_round // sub_steps, 1)
     scal = _frame_scal(rg, cam, sky_color=sky_color, sun_pos=sun_pos,
                        sun_intensity=sun_intensity,
                        shadow_ambient=shadow_ambient, step_cap=step_cap,
-                       sub_rounds=sub_rounds)
+                       sub_rounds=sub_rounds, y0=y0, band_height=band_height)
     if getattr(materials_color, "shape", None) == (6, 128):
         lut = torch.as_tensor(materials_color)
     else:
@@ -1050,6 +1060,27 @@ def _shade_fin4(scal, lut, ts, fl, wa, we, sh_fl, *, shadows, show_steps,
                   shadows=shadows, max_steps=max_steps)
 
 
+def _render_frame4(row, gw2, lut, sw_cont, wmeta_pad, *, height, width,
+                   show_steps, max_steps, shadows, sparse_ns):
+    """The split v4 frame on the host f32[43] row ``row`` of
+    :func:`_frame_inputs` (wavefront4.py:_render_frame4): the state-plane
+    march of the camera rays, with ``shadows`` the shadow bundle's march,
+    then the split shade; a band's row (``scal[21]`` its first row,
+    ``scal[5]`` 2 over the full frame's height) draws that band. Returns
+    the packed RGBA8 and flags images [height, width]."""
+    scal = torch.from_numpy(row).to(sw_cont.device)
+    dims = dict(height=height, width=width, sparse_ns=sparse_ns)
+    ts, fl, wa, we = march_planes4(scal, gw2, sw_cont, wmeta_pad, **dims)
+    sh_fl = None
+    if shadows:
+        ot, dt3, hitm = _shadow_prep4(ts, fl, row)
+        sh_fl = march_planes4(scal, gw2, sw_cont, wmeta_pad, ot, dt3, hitm,
+                              **dims)[1]
+    img = _shade_fin4(row, lut, ts, fl, wa, we, sh_fl, shadows=shadows,
+                      show_steps=show_steps, max_steps=max_steps)
+    return img, fl
+
+
 def render_frame4(
     rg: RenderGrid3,
     cam,
@@ -1110,21 +1141,11 @@ def render_frame4(
         shadow_ambient=shadow_ambient, show_steps=show_steps,
         shadows=shadows, rounds=rounds, steps_per_round=steps_per_round,
         step_cap=step_cap, prepared=prepared)
-    scal = torch.from_numpy(row).to(sw_cont.device)
     if fused:
-        img, fl = march_fused4(scal, gw2, lut, sw_cont, wmeta_pad, **kw)
+        img, fl = march_fused4(torch.from_numpy(row).to(sw_cont.device), gw2,
+                               lut, sw_cont, wmeta_pad, **kw)
     else:
-        dims = dict(height=kw["height"], width=kw["width"],
-                    sparse_ns=kw["sparse_ns"])
-        ts, fl, wa, we = march_planes4(scal, gw2, sw_cont, wmeta_pad, **dims)
-        sh_fl = None
-        if shadows:
-            ot, dt3, hitm = _shadow_prep4(ts, fl, row)
-            sh_fl = march_planes4(scal, gw2, sw_cont, wmeta_pad, ot, dt3,
-                                  hitm, **dims)[1]
-        img = _shade_fin4(row, lut, ts, fl, wa, we, sh_fl,
-                          shadows=bool(shadows), show_steps=kw["show_steps"],
-                          max_steps=kw["max_steps"])
+        img, fl = _render_frame4(row, gw2, lut, sw_cont, wmeta_pad, **kw)
     ret = (img, fl) if with_flags else (img,)
     if return_cache:
         tok = _token(cam.proj_size, img.device, kw["sparse_ns"])
