@@ -5,9 +5,10 @@ strip of demo terrain and on config2/config3's preset world (device
 worldgen), through the entry points a user calls
 (``render_frame4``, ``trace_wavefront4_rays``, ``render_frame3``,
 ``trace_wavefront3``, ``WavefrontRenderer.render_packed`` and
-``.render``, ``trace_wavefront2``, ``path_trace3``, ``path_trace_fused4``,
-``RenderGrid3Builder``, ``WorldGen.generate_chunks``, ``ServerWorld``, the
-probe scripts' ``main``, the SVO tracer ``trace_rays``, ``RayTracer``,
+``.render``, ``trace_wavefront``, ``trace_wavefront2``, ``path_trace3``,
+``path_trace_fused4``, ``RenderGrid3Builder``,
+``WorldGen.generate_chunks``, ``ServerWorld``, the probe scripts'
+``main``, the SVO tracer ``trace_rays``, ``RayTracer``,
 ``PathTracer``, ``build_render_grid``, a served world through
 ``ServerState`` and ``GameState``, the band-sharded frames of
 ``parallel/``, an ``EngineApp`` session, ``graft_entry`` and
@@ -162,7 +163,7 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      counted step), the device time of a frame's calls, together and each
      alone with its counted steps, and of its whole trace, the plain
      version, the least time, and ms/frame of ``render`` (v2), static and
-     orbit, with the device idle share;
+     orbit, with the device idle share (their tables stay for 45);
  29. the primitive probes (``voxelraytracing_tpu_torch.experiments``, the
      port of the TPU probe scripts under ``experiments/``): each script's
      main path at the JAX shapes, launches counted; each of the six probe
@@ -260,6 +261,18 @@ and the port's native host library (``native/svo_core.cpp``, g++):
  44. the script's total seconds and each phase's (the seconds from the
      line before a phase's line to it); each group of phases prints its
      own.
+ 45. (run after 43, so that its profiler session of ~131,000 kernel
+     records comes after every other phase's profiler use) the v1 tracer
+     (``trace_wavefront``, plain PyTorch on the card; JAX's is XLA, no
+     Pallas kernel) on phase 24's v1 tables
+     at the renderer's 48 x 12 budget: ``WavefrontRenderer(
+     tracer="v1").render`` at 1920x1080, counted from 0 and profiled (no
+     hand-written kernel launched, the rounds its loop ran, its device
+     launches and busy time from the profiler's raw CUPTI events), a
+     finite image with hits, warm ms/frame (median of 3) and the busy
+     share beside the card's name and power limit; at 320x176 on the
+     static and two orbit cameras, card vs the CPU on the same rays,
+     every product word for word.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -2543,6 +2556,144 @@ def time_v2(rg1, mats, v, phase):
     return out
 
 
+V1_SMALL = (320, 176)  # whole 16x8 tiles (320x180 is not)
+V1_FRAMES = 3  # warm 1080p frames timed, one at a time
+
+
+def device_work(fn):
+    """``(kernels, copies and sets, device ms)`` of the CUDA work of
+    ``fn()``, from the profiler's raw events (CUPTI; no Python event
+    tree, which takes seconds a 10^5 launches to build); None when the
+    profiler sees no device time."""
+    from torch.autograd import (
+        DeviceType, ProfilerActivity, ProfilerConfig, ProfilerState,
+        _disable_profiler, _enable_profiler, _prepare_profiler)
+    from torch._C._profiler import _ExperimentalConfig
+
+    cfg = ProfilerConfig(ProfilerState.KINETO, False, False, False, False,
+                         False, _ExperimentalConfig())
+    acts = {ProfilerActivity.CUDA}
+    _prepare_profiler(cfg, acts)
+    _enable_profiler(cfg, acts)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        res = _disable_profiler()
+    kernels = copies = 0
+    ns = 0
+    for e in res.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        ns += e.duration_ns()
+        name = e.name().lower()
+        if "memcpy" in name or "memset" in name:
+            copies += 1
+        else:
+            kernels += 1
+    return (kernels, copies, ns / 1e6) if ns else None
+
+
+def v1_tracer(rg1, rg1_cpu, mats, v, smi, phase):
+    """The v1 tracer (``trace_wavefront``: plain PyTorch ops on the card,
+    as JAX's is XLA with no Pallas kernel) on phase 24's v1 tables, at the
+    renderer's budget (48 rounds of 12 steps). First the main path,
+    ``WavefrontRenderer(tracer="v1").render`` at 1920x1080 on the static
+    camera, counted from 0 and profiled: no hand-written kernel launched,
+    the rounds its loop ran, its device launches and busy time (the
+    profiler's raw events), a finite image with hits; then its warm
+    ms/frame (median of 3 frames, CUDA events). Then at 320x176 card vs
+    the CPU session on the same rays (static and two orbit cameras), every
+    product word for word; the CPU traces run on one intra-op thread (on
+    the card's host more threads ran these small ops slower)."""
+    from voxelraytracing_tpu_torch.models.raytracer import (
+        RenderSettings, WavefrontRenderer)
+    from voxelraytracing_tpu_torch.ops import wavefront as t1
+    from voxelraytracing_tpu_torch.ops import wavefront2 as t2
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.ops.camera import generate_rays
+
+    renderer = WavefrontRenderer(mats, tracer="v1")
+    static, _ = bench_cams(v, WIDTH, HEIGHT, 0)
+    s = RenderSettings(sun_pos=sun_of(static))
+    kernels = (t2.march2, t3.march3, t4.shade4, t4.march_planes4,
+               t4.touched4, t4.march_fused4)
+    saved = [k.launches for k in kernels]
+    refetch, rounds, out = t1._refetch, [0], []
+
+    def counted(*a, **k):
+        rounds[0] += 1
+        return refetch(*a, **k)
+
+    # the main path, counted from 0
+    for k in kernels:
+        k.launches = 0
+    t1._refetch = counted
+    try:
+        work = device_work(lambda: out.append(renderer.render(rg1, static,
+                                                              s)))
+    finally:
+        t1._refetch = refetch
+    launched = [k.launches for k in kernels]
+    for k, n in zip(kernels, saved):
+        k.launches = n
+    img, wf = out[0]
+    check(launched == [0] * len(kernels),
+          f"a hand-written kernel ran on the v1 path: {launched}")
+    check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (
+        HEIGHT, WIDTH, 3) and bool(wf.hit.any()),
+          "the v1 frame is not a finite image with hits")
+    ms = statistics.median(
+        event_ms(lambda i: renderer.render(rg1, static, s), 1)
+        for _ in range(V1_FRAMES))
+    say(phase, f"render (v1) {WIDTH}x{HEIGHT}, static camera, "
+        f"{renderer.max_rounds} x {renderer.inner_steps} budget: "
+        f"{rounds[0]} rounds ran, {int(wf.hit.sum())} hits; hand-written "
+        f"kernels launched {sum(launched)}; {ms:.3f} ms/frame warm (median "
+        f"of {V1_FRAMES}, CUDA events; {smi})")
+    if work is None:
+        say(phase, "render (v1) device launches and busy share: not "
+            "measured (the profiler saw no device time)")
+    else:
+        n_k, n_c, dev_ms = work
+        say(phase, f"render (v1) {WIDTH}x{HEIGHT} on the device: {n_k} "
+            f"kernels and {n_c} copies/sets a frame, {dev_ms:.3f} ms busy "
+            f"(profiler, CUPTI), busy share {dev_ms / ms:.4f} of "
+            f"{ms:.3f} ms/frame, {dev_ms / max(n_k + n_c, 1) * 1e3:.2f} us "
+            f"a launch ({smi})")
+
+    t0 = time.perf_counter()
+    budget = dict(max_rounds=renderer.max_rounds,
+                  inner_steps=renderer.inner_steps)
+    w, h = V1_SMALL
+    small, orbit = bench_cams(v, w, h)
+    differ = dict.fromkeys(t1.WavefrontResult._fields, 0)
+    hits = 0
+    n_threads = torch.get_num_threads()
+    for cam in (small, orbit[0], orbit[N_ORBIT // 2]):
+        origin, dirs = generate_rays(cam, np.zeros(3, np.int32),
+                                     device=rg1.bwin.device)
+        a = t1.trace_wavefront(rg1, origin, dirs, width=w, height=h,
+                               **budget)
+        torch.set_num_threads(1)
+        try:
+            b = t1.trace_wavefront(rg1_cpu, origin.cpu(), dirs.cpu(),
+                                   width=w, height=h, **budget)
+        finally:
+            torch.set_num_threads(n_threads)
+        for f in differ:
+            differ[f] += words_differ(getattr(a, f).cpu(), getattr(b, f))
+        hits += int(b.hit.sum())
+    say(phase, f"trace_wavefront (v1) at {w}x{h}, 3 cameras, "
+        f"{budget['max_rounds']} x {budget['inner_steps']}, card vs CPU on "
+        f"the same rays: words differing " + ", ".join(
+            f"{f} {n}" for f, n in differ.items()) + f"; {hits} hits "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(not any(differ.values()) and hits > 0,
+          "the v1 trace differs between card and CPU")
+
+
 # ------------------------------------------------------------ the probes
 
 PROBE_SRC = "voxelraytracing_tpu_torch/csrc/probes3.cu"
@@ -4021,7 +4172,7 @@ def main():
     v2_counts = count_v2_main_path(rg1, mats, v, 28)
     tv2 = time_v2(rg1, mats, v, 28)
     say(28, f"phases 24-28 took {time.perf_counter() - t_v2:.1f} s")
-    del rg1, rg1_cpu
+    # phase 24's v1 tables stay for phase 45, which runs last
     del worlds, cpu_worlds, rg, prep, rg_cpu
     torch.cuda.empty_cache()
 
@@ -4088,6 +4239,13 @@ def main():
     entry_points(42)
     profiling(43)
     say(43, f"phases 40-43 took {time.perf_counter() - t_new:.1f} s")
+
+    # the v1 tracer on phase 24's tables, last: its profiler session of
+    # ~131,000 kernel records comes after every other phase's profiler use
+    t_v1 = time.perf_counter()
+    v1_tracer(rg1, rg1_cpu, mats, v, card, 45)
+    say(45, f"phase 45 took {time.perf_counter() - t_v1:.1f} s")
+    del rg1, rg1_cpu
 
     px = WIDTH * HEIGHT
     b_primary = bound(t8["rows"] * ROW_BYTES + 8 * px,

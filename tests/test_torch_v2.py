@@ -313,11 +313,3 @@ def test_render_matches_jax(world, jax_rays_op_by_op, case):
     _assert_result(wf, jwf)
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), rtol=0,
                                atol=IMG_ATOL)
-
-
-def test_render_refuses_the_v1_tracer(world):
-    _, trg, mats, _, _ = world
-    cam = CamData.create(*CAMS[0], 70.0, SIZE)
-    for tracer in ("v1", "v4"):  # JAX runs the v1 tracer for both
-        with pytest.raises(NotImplementedError, match="v1 tracer"):
-            t_rt.WavefrontRenderer(mats, tracer=tracer).render(trg, cam)

@@ -183,11 +183,12 @@ class WavefrontRenderer:
     (v3_steps_per_round // 8) * 8``.
 
     :meth:`render` returns an f32 image: a RenderGrid3 goes through
-    :meth:`render_packed`; a v1 :class:`~..ops.wavefront.RenderGrid` with
-    ``tracer="v2"`` through the v2 march (``max_rounds`` rounds of 24
-    steps) and :func:`shade_hits`, whose heatmap scale is ``max_rounds *
-    inner_steps``. The v1 tracer is not ported (``tracer="v1"`` raises on
-    a v1 grid).
+    :meth:`render_packed`; a v1 :class:`~..ops.wavefront.RenderGrid`
+    through the v2 march (``tracer="v2"``: ``max_rounds`` rounds of 24
+    steps) or, for every other tracer, the v1 tracer
+    (:func:`~..ops.wavefront.trace_wavefront`: ``max_rounds`` rounds of
+    ``inner_steps`` steps), then :func:`shade_hits`, whose heatmap scale
+    is ``max_rounds * inner_steps``.
     """
 
     def __init__(self, materials, show_step_count=False, max_rounds=48,
@@ -246,7 +247,7 @@ class WavefrontRenderer:
         return img
 
     def _shade(self, wf, dirs, origin, world_min, s):
-        """Shade a v2 trace (the JAX renderer's ``_shade_impl``)."""
+        """Shade a v1 or v2 trace (the JAX renderer's ``_shade_impl``)."""
         pos = origin[None, None] + dirs * wf.t[..., None]
         rs = TraceResult(hit=wf.hit, voxel=wf.voxel, norm=wf.norm, pos=pos,
                          water_dist=wf.water_dist, steps=wf.steps)
@@ -261,8 +262,9 @@ class WavefrontRenderer:
 
         With a RenderGrid3 the trace result is the packed RGBA8 frame of
         :meth:`render_packed` and the image is unpacked from it. With a v1
-        RenderGrid it is the v2 march's
-        :class:`~..ops.wavefront.WavefrontResult`."""
+        RenderGrid it is the :class:`~..ops.wavefront.WavefrontResult` of
+        the v2 march or of the v1 tracer."""
+        from ..ops.wavefront import trace_wavefront
         from ..ops.wavefront2 import trace_wavefront2
         from ..ops.wavefront3 import RenderGrid3
 
@@ -272,11 +274,6 @@ class WavefrontRenderer:
             img = torch.stack([(packed >> sh) & 0xFF for sh in (0, 8, 16)],
                               dim=-1).to(torch.float32)
             return img / _f32(255.0, img.device), packed
-        if self.tracer != "v2":
-            raise NotImplementedError(
-                f"tracer={self.tracer!r} on a v1 RenderGrid: the v1 tracer "
-                "(ops/wavefront.py:trace_wavefront) is not ported; use "
-                "tracer='v2'")
         w, h = cam.proj_size
         dev = rgrid.bwin.device
         # the directions do not depend on world_min; the origin is
@@ -285,7 +282,12 @@ class WavefrontRenderer:
                                     np.zeros(3, np.float32), device=dev)
         origin = (torch.as_tensor(np.asarray(cam.pos, np.float32)).to(dev)
                   - rgrid.world_min.to(torch.float32))
-        wf = trace_wavefront2(rgrid, origin, dirs, width=w, height=h,
-                              rounds=self.max_rounds,
-                              steps_per_round=V2_STEPS_PER_ROUND)
+        if self.tracer == "v2":
+            wf = trace_wavefront2(rgrid, origin, dirs, width=w, height=h,
+                                  rounds=self.max_rounds,
+                                  steps_per_round=V2_STEPS_PER_ROUND)
+        else:
+            wf = trace_wavefront(rgrid, origin, dirs, width=w, height=h,
+                                 max_rounds=self.max_rounds,
+                                 inner_steps=self.inner_steps)
         return self._shade(wf, dirs, origin, rgrid.world_min, s), wf

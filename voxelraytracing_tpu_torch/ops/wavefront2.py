@@ -34,6 +34,9 @@ from .wavefront import (
     RenderGrid,
     WavefrontResult,
     _cdiv,
+    _tile_rm,
+    _untile_rm,
+    _world_nb,
 )
 from .wavefront3 import _axis3, _inv_dir, _slab_exit, _slot_of
 
@@ -383,35 +386,6 @@ def _global_planes(bwin, lwin):
             torch.int32).reshape(1, 128)
 
     return pack(jumpable), pack(jumpable & all_liq)
-
-
-def _world_nb(rg):
-    """Windows per edge of a v1 grid."""
-    nw3 = rg.bwin.shape[0]
-    nb = int(round(nw3 ** (1 / 3)))
-    while nb * nb * nb < nw3:
-        nb += 1
-    return nb
-
-
-def _tile_rm(x, tx, ty, T):
-    """[H, W(,C)] -> [T, 128(,C)] in v2's row-major tile order (16x8
-    pixels a tile; zero rows pad to T)."""
-    extra = tuple(x.shape[2:])
-    ne = len(extra)
-    y = x.reshape((ty, TILE_H, tx, TILE_W) + extra)
-    y = y.permute((0, 2, 1, 3) + tuple(range(4, 4 + ne)))
-    y = y.reshape((tx * ty, 128) + extra)
-    return torch.nn.functional.pad(y, [0, 0] * ne + [0, 0, 0, T - tx * ty])
-
-
-def _untile_rm(x, tx, ty, width, height):
-    """Inverse of :func:`_tile_rm` (wavefront2.py:750-754)."""
-    extra = tuple(x.shape[2:])
-    ne = len(extra)
-    y = x[:tx * ty].reshape((ty, tx, TILE_H, TILE_W) + extra)
-    y = y.permute((0, 2, 1, 3) + tuple(range(4, 4 + ne)))
-    return y.reshape((height, width) + extra)
 
 
 def _frame_inputs(rg, origin, dirs, width, height):
