@@ -273,6 +273,19 @@ and the port's native host library (``native/svo_core.cpp``, g++):
      share beside the card's name and power limit; at 320x176 on the
      static and two orbit cameras, card vs the CPU on the same rays,
      every product word for word.
+ 46. (run after 32, on its preset world and ``prepare_grid4`` token)
+     config5 (run.py:777-821): 3840x2160, four bounces, one sample,
+     ``PRNGKey(1)``'s raw words: every ``march_planes4``, ``touched4``
+     and ``matfetch4`` launch of a ``path_trace3(v4=True)`` frame vs its
+     plain version word for word, the frame finite and not all sky; card
+     vs CPU within the PT bar at 320x180 (v4 route, config5's and an orbit
+     camera) and 256x128 (the v3 route); ``pt4`` vs ``pt4_ref`` at four
+     bounces on config5's camera at 1080p; launches of 3 frames (v4 and
+     fused routes) and of one v3-route frame, each counted from 0; at 4K
+     the fused route's ``pt4`` launch and every eighth ``march3`` launch
+     of the v3 route vs their plain versions word for word; warm ms/frame
+     of each route, its kernels' device ms, the idle share
+     (torch.profiler) and Mrays/s at 5 rays a pixel.
 
 Prints one line per phase, the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -280,6 +293,7 @@ Prints one line per phase, the kernels' JSON line, and as its last line
     python3 chip_smoke.py
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -304,6 +318,9 @@ N_ORBIT_16 = 12
 # 20 on the static camera and the CMP_STEP-th)
 CMP_STEP = N_ORBIT // 4
 WINDOWS = 5
+# timing windows of frames that take tenths of a second or more (the v3,
+# v2 and SVO frames)
+SLOW_WINDOWS = 3
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s, FP32 op/s
 HBM_BPS = 3.35e12
 FP32_OPS = 67e12
@@ -774,11 +791,11 @@ def event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def median_windows(fn, n):
+def median_windows(fn, n, windows=WINDOWS):
     fn(0)
     fn(1)
     torch.cuda.synchronize()
-    return statistics.median(event_ms(fn, n) for _ in range(WINDOWS))
+    return statistics.median(event_ms(fn, n) for _ in range(windows))
 
 
 def graph_ms(fn, n):
@@ -1878,6 +1895,11 @@ def time_sparse(strip, b, lut, phase):
 # frame warm from the last one's token
 V3_KW = dict(rounds=14, step_cap=500)
 N_ORBIT_V3 = 12
+# the v3 and v2 frames take tenths of a second, so their timing windows
+# are shorter than the v4 frames': STATIC_WINDOW frames a window (median
+# of SLOW_WINDOWS windows); the orbit is timed in one window that walks
+# every camera, 30 degrees apart, each frame warm from the last
+STATIC_WINDOW = 2
 # FP32 operations of a ray in one v3 launch outside its march steps: its
 # camera ray (24, recomputed each sub-round, counted once) and ray
 # constants (21)
@@ -1894,9 +1916,9 @@ def flat_outputs(out):
 class Launches:
     """Stand-in for the wrapper ``name`` of the port's ``ops.<module>``
     while active: calls the real wrapper (the kernel), records each call's
-    ``(args, kw)`` in ``inputs`` and, with ``compare``, holds the call
-    against the plain version ``<name>_ref`` on the same inputs, every
-    output word for word. The wrapper counts through its module name,
+    ``(args, kw)`` in ``inputs`` and holds every ``compare``-th call (True:
+    every call, False: none) against its plain version (``<name>_ref`` of the module that defines
+    the wrapper) on the same inputs, every output word for word. The wrapper counts through its module name,
     which the stand-in holds while active: its counts stay the real
     wrapper's."""
 
@@ -1909,16 +1931,19 @@ class Launches:
             f"voxelraytracing_tpu_torch.ops.{module}")
         self.name, self.compare = name, compare
         self.kernel = getattr(self.mod, name)
-        self.ref = getattr(self.mod, name + "_ref")
-        self.n = self.bad = 0
+        self.ref = getattr(importlib.import_module(self.kernel.__module__),
+                           name + "_ref")
+        self.n = self.held = self.bad = 0
         self.err = 0.0
         self.inputs = []
 
     def __call__(self, *args, **kw):
         out = self.kernel(*args, **kw)
-        self.n += 1
         self.inputs.append((args, dict(kw)))
-        if self.compare:
+        held = self.compare and self.n % self.compare == 0
+        self.n += 1
+        if held:
+            self.held += 1
             pairs = list(zip(flat_outputs(out),
                              flat_outputs(self.ref(*args, **kw))))
             self.bad += sum(words_differ(a, b) for a, b in pairs)
@@ -2183,11 +2208,13 @@ def time_v3(rg, mats, lut, v, phase):
             tok[0] = v3_frame(rg, lut, cams[i % len(cams)], tok[0], **kw)[2]
         return fn
 
-    out["bench_static"] = median_windows(frames([static]), 8)
-    out["bench_orbit"] = median_windows(frames(orbit), len(orbit))
-    out["config2_static"] = median_windows(frames([s720], shadows=True), 8)
+    out["bench_static"] = median_windows(frames([static]), STATIC_WINDOW,
+                                         SLOW_WINDOWS)
+    out["bench_orbit"] = median_windows(frames(orbit), len(orbit), 1)
+    out["config2_static"] = median_windows(frames([s720], shadows=True),
+                                           STATIC_WINDOW, SLOW_WINDOWS)
     out["config2_orbit"] = median_windows(frames(o720, shadows=True),
-                                          len(o720))
+                                          len(o720), 1)
     renderer = WavefrontRenderer(mats)
 
     def packed(cams):
@@ -2196,8 +2223,9 @@ def time_v3(rg, mats, lut, v, phase):
             renderer.render_packed(rg, cam, RenderSettings(sun_pos=sun_of(cam)))
         return fn
 
-    out["packed_static"] = median_windows(packed([static]), 8)
-    out["packed_orbit"] = median_windows(packed(orbit), len(orbit))
+    out["packed_static"] = median_windows(packed([static]), STATIC_WINDOW,
+                                          SLOW_WINDOWS)
+    out["packed_orbit"] = median_windows(packed(orbit), len(orbit), 1)
     say(phase, f"{WIDTH}x{HEIGHT} march3 round-0 launch: "
         f"{out['march3']:.4f} ms a wrapper call, {out['march3_dev']:.4f} ms "
         f"on the device (CUDA graph), plain version "
@@ -2214,7 +2242,10 @@ def time_v3(rg, mats, lut, v, phase):
             f"{ms:.4f} ({srd}, {stp}, {bms:.5f})" for ms, srd, stp, bms in each)
         + f"; sum {sum(e[0] for e in each):.4f} ms, least "
         f"{sum(e[3] for e in each):.5f} ms")
-    say(phase, "ms/frame, warm tokens: bench route 1080p static "
+    say(phase, f"ms/frame, warm tokens (median of {SLOW_WINDOWS} windows "
+        f"of {STATIC_WINDOW} static frames; one window of the {N_ORBIT_V3} "
+        f"orbit cameras):"
+        " bench route 1080p static "
         f"{out['bench_static']:.3f}, orbit {out['bench_orbit']:.3f}; "
         f"config2 720p shadows static {out['config2_static']:.3f}, orbit "
         f"{out['config2_orbit']:.3f}; render_packed default 1080p static "
@@ -2529,8 +2560,9 @@ def time_v2(rg1, mats, v, phase):
             renderer.render(rg1, cam, RenderSettings(sun_pos=sun_of(cam)))
         return fn
 
-    out["static"] = median_windows(frames([static]), 8)
-    out["orbit"] = median_windows(frames(orbit), len(orbit))
+    out["static"] = median_windows(frames([static]), STATIC_WINDOW,
+                                   SLOW_WINDOWS)
+    out["orbit"] = median_windows(frames(orbit), len(orbit), 1)
     out["idle_static"] = 1.0 - out["trace_dev"] / out["static"]
     say(phase, f"{WIDTH}x{HEIGHT} march2, round 0 of the static frame "
         f"({kw['sub_rounds']} sub-rounds, one CUDA launch): "
@@ -2550,7 +2582,8 @@ def time_v2(rg1, mats, v, phase):
         + f"; sum {sum(e[0] for e in each):.4f} ms, "
         f"{sum(e[1] for e in each)} steps")
     say(phase, f"ms/frame, render (v2) {WIDTH}x{HEIGHT}: static "
-        f"{out['static']:.3f}, {N_ORBIT_V2}-camera orbit "
+        f"{out['static']:.3f} (median of {SLOW_WINDOWS} windows of "
+        f"{STATIC_WINDOW}), {N_ORBIT_V2}-camera orbit (one window) "
         f"{out['orbit']:.3f}; device idle share of the static frame "
         f"{out['idle_static']:.4f} (1 - trace device ms / frame ms)")
     return out
@@ -3006,7 +3039,8 @@ def phase_preset_frames(generated, dp, sp, pos, mn, eye, smi, phase):
     path_trace_fused4 frame. Each kernel vs its plain version on the card,
     exactly; card vs CPU at 320x180 (the bars of phases 5/8 and 13);
     launches on the three paths, each counted from 0; ms/frame beside
-    ``smi``, the card's name and power limit."""
+    ``smi``, the card's name and power limit. Returns the card's and the
+    CPU's tables, the materials and the card's ``prepare_grid4`` token."""
     from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
     from voxelraytracing_tpu_torch.ops import wavefront4 as t4
     from voxelraytracing_tpu_torch.ops.wavefront3 import color_lut_rows
@@ -3079,7 +3113,233 @@ def phase_preset_frames(generated, dp, sp, pos, mn, eye, smi, phase):
             f"{counts[name]}; static camera {ms[name]:.4f} ms/frame (median "
             f"of {WINDOWS} windows, CUDA events; {smi})")
     check(counts == want, "a preset frame did not run its kernel once a frame")
-    return rg, mats
+    return rg, rg_cpu, mats, prep
+
+
+# config5 (benchmarks/run.py:777-821): the preset world path-traced at
+# 3840x2160 with four bounces and one sample, PRNGKey(1) as its raw key
+# words, a 500-step cap, the sun 900 and 300 voxels off the eye; on the v4
+# route with the schedule knobs run.py passes (path_trace3 accepts and
+# ignores them) and its warm token; Mrays/s at 5 rays a pixel (run.py:819)
+C5_SIZE = (3840, 2160)
+C5_KW = dict(bounces=4, samples=1, step_cap=500)
+C5_KEY = np.array([0, 1], np.uint32)
+C5_KNOBS = dict(prim_steps_per_round=256, prim_s_seg=4)
+C5_RAYS = 5
+C5_SMALL = (320, 180)
+# the v3 route marches whole 16x8 tiles; its CPU frame is the phase's
+# largest cost, so it is smaller than the v4 route's
+C5_SMALL_V3 = (256, 128)
+# the v3 route's 4K frame holds every C5_V3_HELD-th march3 launch (of
+# ~95, the first included) against march3_ref, 0.5-1 s each on the card
+C5_V3_HELD = 8
+C5_FRAMES = 3             # frames counted from 0 on each route
+
+
+def c5_sun(eye):
+    return (eye[0] + 900.0, 2500.0, eye[2] + 300.0)
+
+
+def c5_frame(route, rg, mats, cam, sun, prep=None, tok=None):
+    """config5's frame through ``route`` -> ``(radiance, token)``: "v4" is
+    run.py's ``path_trace3(v4=True, ...)`` call (run.py:800-805), "v3" its
+    call on the default route (run.py:808-812, no token), "fused"
+    ``path_trace_fused4`` with the same arguments (no token)."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+
+    kw = dict(sun_pos=sun, key=C5_KEY, **C5_KW)
+    if route == "v4":
+        return p3.path_trace3(rg, cam, mats, v4=True, prepared=prep,
+                              cache=tok, return_cache=True, **C5_KNOBS, **kw)
+    if route == "v3":
+        return p3.path_trace3(rg, cam, mats, **kw), None
+    return p4.path_trace_fused4(rg, cam, mats, prepared=prep, **kw), None
+
+
+def c5_frame_ok(img, size):
+    """A config5 radiance frame: f32[H, W, 3], finite, non-negative."""
+    return (tuple(img.shape) == (size[1], size[0], 3)
+            and bool(torch.isfinite(img).all()) and bool((img >= 0).all()))
+
+
+def phase_config5(rg, rg_cpu, mats, prep, mn, eye, smi, phase):
+    """config5 on phase 32's preset world and ``prepare_grid4`` token. (a)
+    every ``march_planes4`` (with its ``touched4`` marks) and ``matfetch4``
+    launch of one 4K four-bounce ``path_trace3(v4=True)`` frame against
+    its plain version, word for word; (b) that frame finite and not all
+    sky; (c) card vs the CPU session within PT_BAR on config5's camera and
+    an orbit camera (v4 route, 320x180) and on config5's camera (v3 route,
+    C5_SMALL_V3); ``pt4`` vs ``pt4_ref`` at four bounces on config5's
+    camera at 1080p, word for word on the preset table with scatter 0
+    (nothing drawn) and within PT_BAR on the preset table; (d) launches
+    of C5_FRAMES frames of the v4 and fused routes and one of the v3
+    route, counted from 0, against what the code launches, the ``pt4``
+    launch of the first 4K fused frame and every C5_V3_HELD-th ``march3``
+    launch of the 4K v3 frame against their plain versions, word for word
+    (the routes draw other random numbers and the v3 route leaves rays
+    its rounds do not finish, so their frames agree in the mean, not
+    pixel for pixel); (e) warm ms/frame of each route at 4K, its kernels'
+    device ms and the device's idle share (torch.profiler), Mrays/s at 5
+    rays a pixel, beside ``smi``."""
+    from voxelraytracing_tpu_torch.ops import pathtrace3 as p3
+    from voxelraytracing_tpu_torch.ops import pathtrace4 as p4
+    from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+    from voxelraytracing_tpu_torch.ops import wavefront4 as t4
+    from voxelraytracing_tpu_torch.ops.camera import CamData
+
+    t_phase = time.perf_counter()
+    sun = c5_sun(eye)
+    cam = CamData.create((30.0, 45.0, 0.0), eye, 70.0, C5_SIZE)
+    w, h = C5_SIZE
+
+    # (a), (b): one warm frame's launches, each against its plain version
+    tok = c5_frame("v4", rg, mats, cam, sun, prep)[1]
+    with Launches("pathtrace3", "march_planes4") as planes, \
+            Launches("wavefront4", "touched4") as marks, \
+            Launches("pathtrace3", "matfetch4") as fetch:
+        img, tok = c5_frame("v4", rg, mats, cam, sun, prep, tok)
+        torch.cuda.synchronize()
+    kinds = ["camera" if len(a) == 4 else "bundle" for a, _ in planes.inputs]
+    live = [int(a[6].sum()) for a, _ in planes.inputs if len(a) == 7]
+    cam_args, cam_kw = planes.inputs[0]
+    hit = float((((t4.march_planes4(*cam_args, **cam_kw)[1] >> 1) & 1) != 0)
+                .float().mean())
+    bad = {r.name: r.bad for r in (planes, marks, fetch)}
+    n = {r.name: r.n for r in (planes, marks, fetch)}
+    say(phase, f"config5 {w}x{h}, {C5_KW['bounces']} bounces, path_trace3("
+        f"v4=True): launches compared with their plain versions {n} (legs "
+        f"{kinds.count('camera')} camera + {kinds.count('bundle')} bounce "
+        f"bundles; live paths a bounce {live}), words differing {bad}")
+    check(kinds == ["camera"] + ["bundle"] * C5_KW["bounces"]
+          and n["touched4"] == n["march_planes4"] == n["matfetch4"]
+          == 1 + C5_KW["bounces"],
+          "config5's frame did not march one camera leg and a leg a bounce")
+    check(not any(bad.values()), "a config5 launch differs from its plain "
+          "version")
+    say(phase, f"config5 frame {tuple(img.shape)}: finite and non-negative "
+        f"{c5_frame_ok(img, C5_SIZE)}, mean radiance {float(img.mean()):.6f},"
+        f" camera rays that hit {hit:.4f}")
+    check(c5_frame_ok(img, C5_SIZE) and hit >= MIN_HIT and float(
+        img.mean()) > 0, "config5's frame is not a finite frame of the world")
+    del planes, marks, fetch, img
+
+    # (c) card vs the CPU session, and pt4 at four bounces
+    worst, secs = {}, {}
+    for route, size, cams in (
+            ("v4", C5_SMALL, preset_cams(mn, eye, C5_SMALL)[:2]),
+            ("v3", C5_SMALL_V3, preset_cams(mn, eye, C5_SMALL_V3)[:1])):
+        t0 = time.perf_counter()
+        for c in cams:
+            a = c5_frame(route, rg, mats, c, sun, prep)[0].cpu()
+            b = c5_frame(route, rg_cpu, mats, c, sun)[0]
+            worst[route] = min(worst.get(route, 1.0), pt_bar(a, b))
+        secs[route] = time.perf_counter() - t0
+    say(phase, f"config5 frames card vs CPU, worst share of pixels within "
+        f"2/255: v4 route at {C5_SMALL[0]}x{C5_SMALL[1]} (config5's and an "
+        f"orbit camera) {worst['v4']:.6f} ({secs['v4']:.1f} s), v3 route at "
+        f"{C5_SMALL_V3[0]}x{C5_SMALL_V3[1]} (config5's camera) "
+        f"{worst['v3']:.6f} ({secs['v3']:.1f} s)")
+    check(min(worst.values()) >= PT_BAR, "config5 misses the path-tracing "
+          "bar against the CPU")
+    t0 = time.perf_counter()
+    mirror = mats._replace(scatter=np.zeros_like(mats.scatter))
+    c1080 = CamData.create((30.0, 45.0, 0.0), eye, 70.0, (WIDTH, HEIGHT))
+    pt = {}
+    for name, m in (("scatter 0", mirror), ("preset", mats)):
+        args, (ph, pw) = p3.pt_inputs(rg, c1080, m, sun_pos=sun, key=C5_KEY,
+                                      step_cap=C5_KW["step_cap"],
+                                      prepared=prep)
+        kw = dict(height=ph, width=pw, bounces=C5_KW["bounces"],
+                  samples=C5_KW["samples"])
+        got, ref = p4.pt4(*args, **kw), p4.pt4_ref(*args, **kw)
+        pt[name] = (words_differ(got, ref), pt_bar(got, ref),
+                    float((got - ref).abs().max()))
+    say(phase, f"pt4 vs pt4_ref, config5's camera at {WIDTH}x{HEIGHT}, "
+        f"{C5_KW['bounces']} bounces (differing words, share within 2/255, "
+        f"max abs diff): " + "; ".join(f"{k} table {v}" for k, v in
+                                       pt.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    check(pt["scatter 0"][0] == 0 and pt["preset"][1] >= PT_BAR,
+          "pt4 disagrees with its plain version at four bounces")
+
+    # (d) launches a frame, each route counted from 0
+    counters = (p3.matfetch4, t4.march_planes4, t4.touched4, p4.pt4,
+                t3.march3)
+    legs = 1 + C5_KW["bounces"]
+    toks = {"v4": tok}
+    counts, frames = {}, {}
+    # the kernel of the fused and the v3 route, held to its plain version
+    # on every launch of the route's first 4K frame
+    held_by = {"fused": ("pathtrace4", "pt4", True),
+               "v3": ("wavefront3", "march3", C5_V3_HELD)}
+    held = {}
+    for route, n_frames in (("v4", C5_FRAMES), ("fused", C5_FRAMES),
+                            ("v3", 1)):
+        for c in counters:
+            c.launches = 0
+        for i in range(n_frames):
+            rec = (Launches(*held_by[route]) if i == 0 and route in held_by
+                   else contextlib.nullcontext())
+            with rec:
+                frames[route], toks[route] = c5_frame(route, rg, mats, cam,
+                                                      sun, prep,
+                                                      toks.get(route))
+                torch.cuda.synchronize()
+            if isinstance(rec, Launches):
+                held[rec.name] = (rec.n, rec.held, rec.bad, rec.err)
+            del rec
+        torch.cuda.synchronize()
+        counts[route] = [c.launches for c in counters]
+        say(phase, f"config5 {route} route x{n_frames}: launches matfetch4/"
+            f"planes/touched/pt4/march3 {counts[route]}; last frame finite "
+            f"and non-negative {c5_frame_ok(frames[route], C5_SIZE)}, mean "
+            f"radiance {float(frames[route].mean()):.6f}")
+    n3 = counts["v3"][4]
+    check(counts["v4"] == [C5_FRAMES * legs] * 3 + [0, 0]
+          and counts["fused"] == [0, 0, 0, C5_FRAMES, 0]
+          and counts["v3"][:4] == [legs, 0, 0, 0] and n3 >= legs,
+          "a config5 route did not launch what its code launches")
+    check(all(c5_frame_ok(f, C5_SIZE) for f in frames.values()),
+          "a config5 route's frame is not finite")
+    say(phase, f"config5 {w}x{h} launches against their plain versions "
+        f"(launches, launches held, differing words, max abs float error): "
+        + "; ".join(f"{k} {v}" for k, v in held.items()))
+    check(held["pt4"][:2] == (1, 1) and held["march3"][0] == n3
+          and held["march3"][1] == -(-n3 // C5_V3_HELD)
+          and not any(v[2] for v in held.values()),
+          "a config5 4K launch differs from its plain version")
+
+    # (e) warm ms/frame, kernels' device ms, idle share, Mrays/s
+    names = {"v4": ("march_planes4", "touched4", "matfetch4"),
+             "fused": ("pt4",), "v3": ("march3", "matfetch4")}
+    windows = {"v4": 2, "fused": 4}
+
+    def step(route):
+        def fn(i):
+            toks[route] = c5_frame(route, rg, mats, cam, sun, prep,
+                                   toks[route])[1]
+        return fn
+
+    for route in ("v4", "fused", "v3"):
+        fn = step(route)
+        if route == "v3":  # its frame takes seconds: 3 frames, not windows
+            ms = statistics.median(event_ms(fn, 1) for _ in range(3))
+            how = "median of 3 frames"
+        else:
+            ms = median_windows(fn, windows[route])
+            how = f"median of {WINDOWS} windows of {windows[route]}"
+        dev_ms, n_dev, by = device_events(fn, names[route])
+        k_ms = sum(by.values())
+        say(phase, f"config5 {w}x{h} {route} route: {ms:.4f} ms/frame warm "
+            f"({how}, CUDA events), {C5_RAYS * w * h / ms / 1e3:.3f} "
+            f"Mrays/s at {C5_RAYS} rays a pixel; kernels on the device "
+            + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
+            + f" = {k_ms:.4f} ms; all device work {dev_ms:.4f} ms in {n_dev} "
+            f"kernels and copies (torch.profiler), device idle "
+            f"{1 - dev_ms / ms:.4f}, idle outside the kernels "
+            f"{1 - k_ms / ms:.4f} ({smi})")
+    say(phase, f"phase {phase} took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_native(calls, phase):
@@ -3290,11 +3550,11 @@ def svo_card_vs_cpu(demo, demo_cpu, mats, phase):
           "CPU")
 
 
-def busy_share(fn, frame_ms):
-    """Device share of one call of ``fn``: the summed device time of the
-    kernels and copies it ran (torch.profiler, CUPTI; one stream, so they
-    do not overlap) over ``frame_ms``, and how many there were; None when
-    the profiler sees no device time."""
+def device_events(fn, names=()):
+    """``(device ms, count, {name: ms})`` of one call of ``fn``: the summed
+    device time of the kernels and copies it ran (torch.profiler, CUPTI;
+    one stream, so they do not overlap), how many there were, and the
+    device ms of the kernels whose names hold each of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3303,10 +3563,20 @@ def busy_share(fn, frame_ms):
         fn(0)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in dev)
-    if not dev_us:
+    by_name = {k: sum(e.time_range.elapsed_us() for e in dev if k in e.name)
+               / 1e3 for k in names}
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
+            by_name)
+
+
+def busy_share(fn, frame_ms):
+    """Device share of one call of ``fn`` (:func:`device_events`) over
+    ``frame_ms``, the device ms and the count of kernels and copies; None
+    when the profiler sees no device time."""
+    dev_ms, n, _ = device_events(fn)
+    if not dev_ms:
         return None, 0.0, 0
-    return dev_us / 1e3 / frame_ms, dev_us / 1e3, len(dev)
+    return dev_ms / frame_ms, dev_ms, n
 
 
 def config1_world():
@@ -3332,11 +3602,11 @@ def config1_world():
 
 
 def svo_times(demo, demo_mats, preset, preset_cam, preset_mats, smi, phase):
-    """ms/frame (CUDA events, median of 5 windows) of the SVO ``RayTracer``
-    at 1080p on the demo and preset worlds, plain and shadowed; the
-    ``PathTracer`` at 1080p, 3 bounces, 1 sample (median of 3); config1's
-    frame in Mrays/s as run.py:98 counts it; the device's busy share of a
-    plain demo frame."""
+    """ms/frame (CUDA events, median of SLOW_WINDOWS windows) of the SVO
+    ``RayTracer`` at 1080p on the demo and preset worlds, plain and
+    shadowed; the ``PathTracer`` at 1080p, 3 bounces, 1 sample (median of
+    3); config1's frame in Mrays/s as run.py:98 counts it (median of
+    WINDOWS windows); the device's busy share of a plain demo frame."""
     from voxelraytracing_tpu_torch.models import (
         PathTracer, RayTracer, RenderSettings)
 
@@ -3350,7 +3620,7 @@ def svo_times(demo, demo_mats, preset, preset_cam, preset_mats, smi, phase):
             tr = RayTracer(mats, shadows=shadows)
             s = RenderSettings(sun_pos=sun_of(cam))
             out[name, shadows] = median_windows(
-                lambda i: tr.render(world, cam, s), 1)
+                lambda i: tr.render(world, cam, s), 1, SLOW_WINDOWS)
     tr = RayTracer(demo_mats)
     s = RenderSettings(sun_pos=sun_of(static))
     share, dev_ms, n_dev = busy_share(lambda i: tr.render(demo, static, s),
@@ -3367,7 +3637,8 @@ def svo_times(demo, demo_mats, preset, preset_cam, preset_mats, smi, phase):
     for name in ("demo", "preset"):
         say(phase, f"RayTracer {name} world {WIDTH}x{HEIGHT}: plain "
             f"{out[name, False]:.3f} ms/frame, shadowed "
-            f"{out[name, True]:.3f} ms/frame (median of {WINDOWS} windows, "
+            f"{out[name, True]:.3f} ms/frame (median of {SLOW_WINDOWS} "
+            f"windows, "
             f"CUDA events; {smi})")
     say(phase, f"PathTracer demo world {WIDTH}x{HEIGHT}, 3 bounces, 1 "
         f"sample: {out['pt']:.3f} ms/frame (median of 3; {smi})")
@@ -3886,7 +4157,8 @@ def engine_session(smi, phase):
         img = app.draw_frame()
         torch.cuda.synchronize()
         svo_hits = float(app._last_trace.hit.float().mean())
-        times["svo"] = median_windows(lambda i: app.draw_frame(), 1)
+        times["svo"] = median_windows(lambda i: app.draw_frame(), 1,
+                                      SLOW_WINDOWS)
         say(phase, f"SVO frame {app.resolution} (RayTracer on the device "
             f"pool, {app._dev_nodes.numel()} node words): hit share "
             f"{svo_hits:.4f}, finite {bool(torch.isfinite(img).all())}")
@@ -4200,8 +4472,10 @@ def main():
     t_preset = time.perf_counter()
     gen, dp, sp, pos, mn, eye, batch, grids, generated = phase_worldgen(30)
     phase_svo_build(gen, dp, batch, grids, 31)
-    rg_p, mats_p = phase_preset_frames(generated, dp, sp, pos, mn, eye, card,
-                                       32)
+    rg_p, rg_p_cpu, mats_p, prep_p = phase_preset_frames(
+        generated, dp, sp, pos, mn, eye, card, 32)
+    phase_config5(rg_p, rg_p_cpu, mats_p, prep_p, mn, eye, card, 46)
+    del rg_p_cpu, prep_p
     phase_native(w80["rows_calls"], 33)
     say(33, f"phases 30-33 took {time.perf_counter() - t_preset:.1f} s")
     torch.cuda.empty_cache()

@@ -5,102 +5,25 @@ compiles as a whole: a jitted function, or a Pallas kernel in interpret
 mode, which JAX always compiles as one program (``pallas_call``'s
 implementation re-enters ``jit``, even under ``jax.disable_jit()``). To
 see what JAX's own op sequence gives with every multiply and add rounded
-on its own, :func:`eval_closed` walks the program's jaxpr and dispatches
-each primitive by itself, recursing into ``jit`` calls, loops,
-conditionals and the Pallas interpreter's own jaxpr. A program evaluated
-so runs slowly (seconds for a small ray bundle) but rounds like the
-port's plain PyTorch versions.
-
-:func:`numpy_op_by_op` walks a program the same way but computes each
-elementwise, shape, reduction and gather primitive with NumPy, which
-rounds every float operation on its own as a primitive compiled alone
-does, and binds the rest (control flow, anything without a rule) in JAX.
-Dispatching a primitive to XLA alone costs far more than the NumPy call
-on arrays of a few thousand elements, so a host loop of many small
-programs (the v1 tracer) runs in seconds instead of minutes.
+on its own, this module walks the program's jaxpr: calls (``jit``,
+custom derivatives, remat) are inlined; loops, conditionals and the
+Pallas interpreter's own jaxpr run their bodies the same way; each
+elementwise, shape, reduction and gather primitive is computed with
+NumPy, which rounds every float operation on its own as a primitive
+compiled alone does (with XLA's zero signs); the rest is bound in JAX
+one primitive at a time. That rounds as ``jax.disable_jit()`` does, which
+dispatches and compiles each primitive for each shape instead: a NumPy
+call on arrays of a few thousand elements costs far less, so a frame
+runs in a second instead of tens. ``numpy_op_by_op(fn, jax_only=True)``
+walks the same program but binds every primitive in JAX alone, as
+``jax.disable_jit()`` would with the Pallas kernels unrolled too: the
+tests hold the NumPy rules to it where zero signs and NaNs decide.
 """
 
 import jax
 import numpy as np
 from jax._src import core as score
 from jax._src.pallas import hlo_interpreter
-
-
-def _read(env, v):
-    if isinstance(v, score.Literal):
-        return v.val
-    return env[v]
-
-
-def eval_jaxpr(jaxpr, consts, *args):
-    """Values of ``jaxpr``'s outputs, each equation applied alone."""
-    env = {}
-    for v, c in zip(jaxpr.constvars, consts):
-        env[v] = c
-    for v, a in zip(jaxpr.invars, args):
-        env[v] = a
-    for eqn in jaxpr.eqns:
-        ins = [_read(env, v) for v in eqn.invars]
-        outs = apply(eqn, ins)
-        if not eqn.primitive.multiple_results and not isinstance(outs, (list, tuple)):
-            outs = [outs]
-        for v, o in zip(eqn.outvars, outs):
-            env[v] = o
-    return [_read(env, v) for v in jaxpr.outvars]
-
-
-def eval_closed(cj, *args):
-    """:func:`eval_jaxpr` of a ``ClosedJaxpr`` (``jax.make_jaxpr``'s)."""
-    return eval_jaxpr(cj.jaxpr, cj.consts, *args)
-
-
-def apply(eqn, ins):
-    """One equation: control flow and calls recurse, the rest bind one
-    primitive (compiled alone, it has nothing to contract with)."""
-    p, prm = eqn.primitive.name, eqn.params
-    if p in ("pjit", "jit", "closed_call", "core_call"):
-        j = prm.get("jaxpr") or prm.get("call_jaxpr")
-        return eval_closed(j, *ins) if hasattr(j, "consts") else eval_jaxpr(j, (), *ins)
-    if p in ("custom_jvp_call", "custom_vjp_call", "custom_vjp_call_jaxpr"):
-        j = prm.get("call_jaxpr") or prm.get("fun_jaxpr")
-        return eval_closed(j, *ins)
-    if p in ("remat", "checkpoint"):
-        return eval_jaxpr(prm["jaxpr"], (), *ins)
-    if p == "while":
-        cn, bn = prm["cond_nconsts"], prm["body_nconsts"]
-        cc, bc, carry = ins[:cn], ins[cn:cn + bn], list(ins[cn + bn:])
-        while bool(np.asarray(eval_closed(prm["cond_jaxpr"], *cc, *carry)[0])):
-            carry = eval_closed(prm["body_jaxpr"], *bc, *carry)
-        return carry
-    if p == "scan":
-        nc, ncar = prm["num_consts"], prm["num_carry"]
-        consts, carry, xs = ins[:nc], list(ins[nc:nc + ncar]), ins[nc + ncar:]
-        n, ys = prm["length"], []
-        idx = range(n - 1, -1, -1) if prm["reverse"] else range(n)
-        for i in idx:
-            out = eval_closed(prm["jaxpr"], *consts, *carry, *[x[i] for x in xs])
-            carry, y = out[:ncar], out[ncar:]
-            ys.append(y)
-        if prm["reverse"]:
-            ys = ys[::-1]
-        nys = len(prm["jaxpr"].jaxpr.outvars) - ncar
-        stacked = [jax.numpy.stack([y[k] for y in ys]) for k in range(nys)]
-        return carry + stacked
-    if p == "cond":
-        i = int(np.asarray(ins[0]))
-        br = prm["branches"]
-        i = min(max(i, 0), len(br) - 1)
-        return eval_closed(br[i], *ins[1:])
-    if p == "pallas_call":
-        kw = {k: v for k, v in prm.items() if k not in ("interpret", "backend")}
-
-        def interpret(*a):
-            return hlo_interpreter.pallas_call_hlo_interpret(
-                *a, backend=None, **kw)
-
-        cj = jax.make_jaxpr(interpret)(*ins)
-        return eval_closed(cj, *ins)
-    return eqn.primitive.bind(*ins, **prm)
 
 
 def _convert(eqn):
@@ -242,6 +165,35 @@ def _div(eqn):
     return np.divide
 
 
+def _zeros(a, b):
+    """Float pairs of zeros (either sign), where XLA orders -0 below +0."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind != "f":
+        return None
+    return (a == 0) & (b == 0)
+
+
+def _max(a, b):
+    z = _zeros(a, b)
+    out = np.maximum(a, b)
+    return out if z is None or not z.any() else np.where(
+        z, np.where(np.signbit(a), b, a), out)
+
+
+def _min(a, b):
+    z = _zeros(a, b)
+    out = np.minimum(a, b)
+    return out if z is None or not z.any() else np.where(
+        z, np.where(np.signbit(a), a, b), out)
+
+
+def _sign(x):
+    """XLA's sign keeps a zero's sign (NumPy's gives +0)."""
+    x = np.asarray(x)
+    return np.sign(x) if x.dtype.kind != "f" else np.where(x == 0, x,
+                                                           np.sign(x))
+
+
 def _with(f, *names):
     """A rule calling ``f(*inputs, **params)`` for the named params."""
     return lambda eqn: (lambda *x: f(*x, **{k: eqn.params[k] for k in names}))
@@ -257,9 +209,9 @@ def _slice(x, start_indices, limit_indices, strides):
 NUMPY_RULES = {
     **{name: (lambda f: lambda eqn: f)(f) for name, f in (
         ("add", np.add), ("sub", np.subtract), ("mul", np.multiply),
-        ("neg", np.negative), ("abs", np.abs), ("sign", np.sign),
-        ("floor", np.floor), ("ceil", np.ceil), ("max", np.maximum),
-        ("min", np.minimum), ("eq", np.equal), ("ne", np.not_equal),
+        ("neg", np.negative), ("abs", np.abs), ("sign", _sign),
+        ("floor", np.floor), ("ceil", np.ceil), ("max", _max),
+        ("min", _min), ("eq", np.equal), ("ne", np.not_equal),
         ("lt", np.less), ("le", np.less_equal), ("gt", np.greater),
         ("ge", np.greater_equal), ("and", np.bitwise_and),
         ("or", np.bitwise_or), ("not", np.invert))},
@@ -290,12 +242,19 @@ NUMPY_RULES = {
 }
 
 
+# call primitives whose jaxpr a program inlines
+_CALLS = frozenset({"pjit", "jit", "closed_call", "core_call",
+                    "custom_jvp_call", "custom_vjp_call",
+                    "custom_vjp_call_jaxpr", "remat", "checkpoint"})
+
+
 class _Program:
     """A jaxpr flattened for :func:`numpy_op_by_op`: nested ``jit`` calls
     inlined, every variable a slot of one list, literals and constants
-    filled in once, each equation a NumPy rule (or a JAX bind)."""
+    filled in once, each equation a rule of ``rules`` (or a JAX bind)."""
 
-    def __init__(self, cj):
+    def __init__(self, cj, rules):
+        self.rules = rules
         self.init = []
         self.steps = []
         slot = {}
@@ -324,15 +283,21 @@ class _Program:
         for eqn in jaxpr.eqns:
             ins = tuple(read(v) for v in eqn.invars)
             name, prm = eqn.primitive.name, eqn.params
-            if name in ("pjit", "jit"):
-                inner = prm["jaxpr"]
-                outs = self._inline(inner.jaxpr, inner.consts, ins, {})
+            if name in _CALLS:
+                inner = (prm.get("jaxpr") or prm.get("call_jaxpr")
+                         or prm.get("fun_jaxpr"))
+                if hasattr(inner, "consts"):
+                    outs = self._inline(inner.jaxpr, inner.consts, ins, {})
+                else:
+                    outs = self._inline(inner, (), ins, {})
                 for v, o in zip(eqn.outvars, outs):
                     slot[v] = o
                 continue
-            rule = NUMPY_RULES.get(name)
-            f = rule(eqn) if rule is not None else None
-            fn = _bound(eqn) if f is None else _ruled(f)
+            fn = _control(eqn, self.rules)
+            if fn is None:
+                rule = self.rules.get(name)
+                f = rule(eqn) if rule is not None else None
+                fn = _bound(eqn) if f is None else _ruled(f)
             outs = tuple(self._new(slot, v) for v in eqn.outvars)
             self.steps.append((fn, ins, outs,
                                tuple(np.dtype(v.aval.dtype)
@@ -352,6 +317,67 @@ class _Program:
         return [env[i] for i in self.outs]
 
 
+def _control(eqn, rules):
+    """A loop, conditional or Pallas call whose bodies run as programs of
+    this module under ``rules`` (built at their first run), or None for
+    any other equation."""
+    name, prm = eqn.primitive.name, eqn.params
+    built = {}
+
+    def program(key, make):
+        if key not in built:
+            built[key] = _Program(make(), rules)
+        return built[key]
+
+    if name == "while":
+        cn, bn = prm["cond_nconsts"], prm["body_nconsts"]
+
+        def run_while(*ins):
+            cond = program("cond", lambda: prm["cond_jaxpr"])
+            body = program("body", lambda: prm["body_jaxpr"])
+            cc, bc, carry = ins[:cn], ins[cn:cn + bn], list(ins[cn + bn:])
+            while bool(np.asarray(cond([*cc, *carry])[0])):
+                carry = body([*bc, *carry])
+            return carry
+        return run_while
+    if name == "cond":
+        def run_cond(i, *ins):
+            br = prm["branches"]
+            i = min(max(int(np.asarray(i)), 0), len(br) - 1)
+            return program(i, lambda: br[i])(list(ins))
+        return run_cond
+    if name == "scan":
+        nc, ncar = prm["num_consts"], prm["num_carry"]
+
+        def run_scan(*ins):
+            body = program("body", lambda: prm["jaxpr"])
+            consts, carry = ins[:nc], list(ins[nc:nc + ncar])
+            xs = ins[nc + ncar:]
+            n, ys = prm["length"], []
+            for i in (range(n - 1, -1, -1) if prm["reverse"] else range(n)):
+                out = body([*consts, *carry, *[np.asarray(x)[i] for x in xs]])
+                carry, y = out[:ncar], out[ncar:]
+                ys.append(y)
+            if prm["reverse"]:
+                ys = ys[::-1]
+            return carry + [np.stack([np.asarray(y[k]) for y in ys])
+                            for k in range(len(eqn.outvars) - ncar)]
+        return run_scan
+    if name == "pallas_call":
+        kw = {k: v for k, v in prm.items()
+              if k not in ("interpret", "backend")}
+        avals = [jax.ShapeDtypeStruct(v.aval.shape, v.aval.dtype)
+                 for v in eqn.invars]
+
+        def run_kernel(*ins):
+            kernel = program("kernel", lambda: jax.make_jaxpr(
+                lambda *a: hlo_interpreter.pallas_call_hlo_interpret(
+                    *a, backend=None, **kw))(*avals))
+            return kernel(list(ins))
+        return run_kernel
+    return None
+
+
 def _ruled(f):
     def fn(*ins):
         return (f(*ins),)
@@ -359,18 +385,22 @@ def _ruled(f):
 
 
 def _bound(eqn):
+    """The equation's primitive bound in JAX alone."""
     def fn(*ins):
-        outs = apply(eqn, ins)
+        outs = eqn.primitive.bind(*ins, **eqn.params)
         outs = outs if eqn.primitive.multiple_results else [outs]
         return [np.asarray(o) for o in outs]
     return fn
 
 
-def numpy_op_by_op(fn):
+def numpy_op_by_op(fn, jax_only=False):
     """``fn`` (a JAX function; keywords are static) evaluated one primitive
-    at a time, mostly in NumPy (module docstring). Takes and returns
-    pytrees; the leaves it returns are NumPy arrays. Each argument
-    structure, shape and keyword set is traced once."""
+    at a time, mostly in NumPy (module docstring); with ``jax_only``,
+    every primitive bound in JAX alone. Takes and returns pytrees; the
+    leaves it returns are NumPy arrays. Each argument structure, shape and
+    keyword set is traced once. ``numpy_op_by_op(lambda: ...)()``
+    evaluates a computation that closes over its inputs."""
+    rules = {} if jax_only else NUMPY_RULES
     traced = {}
 
     def run(*args, **kw):
@@ -383,7 +413,8 @@ def numpy_op_by_op(fn):
                 return fn(*jax.tree_util.tree_unflatten(tree, leaves), **kw)
 
             cj, shape = jax.make_jaxpr(g, return_shape=True)(*flat)
-            traced[key] = _Program(cj), jax.tree_util.tree_structure(shape)
+            traced[key] = (_Program(cj, rules),
+                           jax.tree_util.tree_structure(shape))
         prog, out_tree = traced[key]
         return jax.tree_util.tree_unflatten(out_tree, prog(flat))
 

@@ -1,14 +1,16 @@
 """Camera, ray directions and frame layout of the PyTorch port against
 the JAX package.
 
-Directions are held bit for bit. The JAX reference runs under
-``jax.disable_jit()``: op by op, as its source is written. Inside one
+Directions are held bit for bit. The JAX reference runs op by op, as
+its source is written, as under ``jax.disable_jit()``: its program
+evaluated one primitive at a time in NumPy
+(``tests/jax_op_by_op.py:numpy_op_by_op``), which rounds alike without
+compiling each primitive for each frame size. Inside one
 jitted program XLA's CPU compiler contracts ``a*b+c`` into FMAs, which
 moves a share of the directions by an ulp; the port and its CUDA kernel
 round each multiply and add on its own, as the source reads.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from voxelraytracing_tpu.ops import camera as j_camera
 from voxelraytracing_tpu.ops import wavefront3 as j3
 from voxelraytracing_tpu_torch.ops import camera
 from voxelraytracing_tpu_torch.ops import wavefront3 as t3
+from jax_op_by_op import numpy_op_by_op
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CAMS = [
@@ -47,9 +50,8 @@ def test_generate_rays_bit_equal(rot, eye, size):
     wmin = np.array([3, -2, 40], np.int32)
     cam = camera.CamData.create(rot, eye, 70.0, size)
     o, d = camera.generate_rays(cam, wmin, device="cpu")
-    with jax.disable_jit():
-        jo, jd = j_camera.generate_rays(
-            j_camera.CamData.create(rot, eye, 70.0, size), wmin)
+    jc = j_camera.CamData.create(rot, eye, 70.0, size)
+    jo, jd = numpy_op_by_op(lambda: j_camera.generate_rays(jc, wmin))()
     assert tuple(d.shape) == (size[1], size[0], 3) and d.dtype == torch.float32
     np.testing.assert_array_equal(bits(o.numpy()), bits(jo))
     np.testing.assert_array_equal(bits(d.numpy()), bits(jd))
@@ -62,8 +64,8 @@ def test_generate_rays_band():
     args = (cam.inv_view, cam.inv_proj, cam.pos, 48, 16, np.zeros(3))
     _, d = camera.generate_rays_raw(*args, y0=32, full_height=64,
                                     device="cpu")
-    with jax.disable_jit():
-        _, jd = j_camera.generate_rays_raw(*args, y0=32, full_height=64)
+    _, jd = numpy_op_by_op(lambda: j_camera.generate_rays_raw(
+        *args, y0=32, full_height=64))()
     np.testing.assert_array_equal(bits(d.numpy()), bits(jd))
 
 
@@ -91,10 +93,9 @@ def test_cam_scal_and_ray_dirs_bit_equal(rot, eye, size):
     nsx, _, T = t3._sb_dims(tx, ty)
     tg = torch.arange(T, dtype=torch.int32)[:, None].expand(T, 128)
     lane = torch.arange(128, dtype=torch.int32)[None, :].expand(T, 128)
-    with jax.disable_jit():
-        jd = j3._ray_dirs([jscal[i] for i in range(24)],
-                          jnp.asarray(tg.numpy()), jnp.asarray(lane.numpy()),
-                          nsx)
+    jd = numpy_op_by_op(lambda: j3._ray_dirs(
+        [jscal[i] for i in range(24)], jnp.asarray(tg.numpy()),
+        jnp.asarray(lane.numpy()), nsx))()
     for a, b in zip(t3._ray_dirs(scal, tg, lane, nsx), jd):
         np.testing.assert_array_equal(bits(a.numpy()), bits(b))
 

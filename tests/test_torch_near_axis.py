@@ -20,7 +20,9 @@ the camera rows and every pixel's ray direction, bit for bit, and the
 march of the 13 rays as a bundle, every field bit for bit. JAX's jitted
 trace of that bundle (at the same budget) parts from both on the faces
 of 9 rays and the ``t`` of 3 (measured; not run here, for time: it
-compiles for 9 s, and the op-by-op program takes 10-30 s).
+compiles for 9 s). The op-by-op program is evaluated in NumPy, and held
+word for word to the same walk with every primitive bound in JAX alone,
+as ``jax.disable_jit()`` dispatches them.
 """
 
 import jax
@@ -40,7 +42,7 @@ from voxelraytracing_tpu_torch.ops import wavefront4 as t4
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.ops.wavefront3 import (
     RenderGrid3, _cam_scal, _pixel_dirs)
-from jax_op_by_op import eval_closed
+from jax_op_by_op import numpy_op_by_op
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 SIZE = (72, 36)
@@ -144,13 +146,20 @@ def test_bundle_march_equals_jax_uncontracted(bundle):
     jrg, trg, o, d, act = bundle
     kw = dict(width=16, height=8, **BUDGET)
     got = t4.trace_wavefront4_rays(trg, o, d, act, **kw)
-    program = jax.make_jaxpr(lambda: j_trace(jrg, o, d, act, **kw))()
-    with jax.disable_jit():
-        eager = eval_closed(program)
-    for f, e in zip(FIELDS, eager):
+
+    def jax_trace():
+        return j_trace(jrg, o, d, act, **kw)
+
+    eager = numpy_op_by_op(jax_trace)()
+    # direction components near zero, where zero signs decide: the NumPy
+    # rules held to every primitive bound in JAX alone (as
+    # jax.disable_jit() dispatches them), word for word
+    dispatched = numpy_op_by_op(jax_trace, jax_only=True)()
+    for f, e, x in zip(FIELDS, eager, dispatched):
         g = np.asarray(getattr(got, f))
-        e = np.asarray(e).reshape(g.shape)
+        e, x = (np.asarray(y).reshape(g.shape) for y in (e, x))
         if g.dtype == np.float32:
-            g, e = _words(g), _words(e)
+            g, e, x = _words(g), _words(e), _words(x)
+        np.testing.assert_array_equal(e, x, f)
         np.testing.assert_array_equal(g[act], e[act], f)
     assert int(np.asarray(got.hit)[act].sum()) == 4

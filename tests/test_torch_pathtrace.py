@@ -61,6 +61,9 @@ RNG_FREE = (("diffuse", 0, 1, 0), ("mirror", 1, 1, 0), ("mirror", 2, 1, 0))
 # one sample, so that its program is the mirror frame's (bounces=1):
 # the JAX compile is shared; tests/test_torch_pt_fused.py draws two
 DIFFUSE = ("diffuse", 1, 1, 3)
+# two bounces, the program of ("mirror", 2, 1, 0): the second bounce's
+# direction draws from fold_in(skey, 1), which one bounce never reaches
+DIFFUSE2 = ("diffuse", 2, 1, 3)
 # the v3 route (v4=False) at a starved budget, where it is not the v4 frame
 V3_ROUNDS = 2
 
@@ -80,13 +83,13 @@ def _scene(mats):
 
 @pytest.fixture(scope="module")
 def scenes():
-    """Both worlds, and the JAX path_trace3 frames of RNG_FREE and
-    DIFFUSE (four JAX path-trace calls)."""
+    """Both worlds, and the JAX path_trace3 frames of RNG_FREE, DIFFUSE
+    and DIFFUSE2 (five JAX path-trace calls, three programs)."""
     sc = {"diffuse": _scene(demo_materials()),
           "mirror": _scene(make_material_table(256, MIRROR))}
     cam = JCamData.create(*CAM)
     gold = {}
-    for name, bounces, samples, key in RNG_FREE + (DIFFUSE,):
+    for name, bounces, samples, key in RNG_FREE + (DIFFUSE, DIFFUSE2):
         jrg, _, mats = sc[name]
         gold[name, bounces] = np.asarray(j3.path_trace3(
             jrg, cam, mats, sun_pos=SUN, bounces=bounces, samples=samples,
@@ -206,6 +209,20 @@ def test_path_trace3_diffuse_meets_the_pt_bar(scenes):
     assert pt_bar(other, want) < 0.99
 
 
+def test_path_trace3_second_bounce_draws_match_jax(scenes):
+    """Two bounces on the demo materials: the draws of the second bounce
+    (``fold_in(skey, 1)``) and the legs after them are JAX's, at the bars
+    of the frames that draw nothing."""
+    sc, gold = scenes
+    name, bounces, samples, key = DIFFUSE2
+    _, trg, mats = sc[name]
+    got = _port(trg, mats, bounces, samples, key, v4=True)
+    want = gold[name, bounces]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # the second bounce adds light the one-bounce frame lacks
+    assert not np.allclose(want, gold[DIFFUSE[0], DIFFUSE[1]], atol=1e-3)
+
+
 def test_routes_of_the_v3_api_are_one(scenes):
     """``path_trace4`` and the TPU schedule knobs the repository's callers
     pass give the v4 route's frame; ``v4=False`` (JAX's default) marches
@@ -229,6 +246,25 @@ def test_routes_of_the_v3_api_are_one(scenes):
     np.testing.assert_array_equal(_port(trg, mats, 1, v4=True, **knobs), a)
     with pytest.raises(TypeError, match="bounce_rounds_typo"):
         _port(trg, mats, 1, v4=True, bounce_rounds_typo=2)
+
+
+def test_v3_route_legs_hand_over_contiguous_planes(scenes):
+    """The v3 route's legs return contiguous [H, W] planes, as the v4
+    legs do: :func:`matfetch4`'s kernel refuses a view, and a frame whose
+    superblocks overhang it untiles into one (64x32 here, 128x64 of
+    superblocks), which made every v3-route frame raise on the card."""
+    sc, _ = scenes
+    _, trg, mats = sc["diffuse"]
+    cam = CamData.create(*CAM)
+    args, (h, w) = p3.pt_inputs(trg, cam, mats, sun_pos=SUN, step_cap=500)
+    primary, bounce = p3._v3_legs(trg, cam, args[0], height=h, width=w,
+                                  rounds=V3_ROUNDS, sub_rounds=6,
+                                  step_cap=500)
+    o = torch.full((h, w, 3), 20.0)
+    d = torch.nn.functional.normalize(torch.ones(h, w, 3), dim=-1)
+    for planes in (primary(), bounce(o, d, torch.ones(h, w, dtype=torch.bool))):
+        assert [tuple(p.shape) for p in planes] == [(h, w)] * 4
+        assert all(p.is_contiguous() for p in planes)
 
 
 def test_cache_token_is_inert(scenes):

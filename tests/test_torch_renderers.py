@@ -9,8 +9,10 @@ test_wavefront4.py's first camera at 64x32, config2's sun.
 Bars, each with its reason:
   * ``RayTracer`` (plain, shadowed at ``shadow_ambient`` 0.4 and 1.0, the
     step heatmap) and ``composite_crosshair`` (off, dot, cross) against
-    JAX under ``jax.disable_jit()``: the image and every TraceResult field
-    word for word;
+    JAX's program evaluated one primitive at a time, as under
+    ``jax.disable_jit()`` (NumPy's ``tests/jax_op_by_op.py:numpy_op_by_op``,
+    which test_torch_traverse.py holds to ``disable_jit`` on the tracer):
+    the image and every TraceResult field word for word;
   * the normal draws: word for word against ``jax.random.normal`` (the
     bits are matched, so no statistical comparison is needed), and XLA's
     ``erf_inv`` on the values the uniform can take (a subset here; all
@@ -41,6 +43,7 @@ from voxelraytracing_tpu_torch.ops import prng
 from voxelraytracing_tpu_torch.ops.camera import CamData
 from voxelraytracing_tpu_torch.world.demo import demo_materials, make_demo_world
 
+from jax_op_by_op import numpy_op_by_op
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CPU = dict(device="cpu")
@@ -76,9 +79,8 @@ def test_raytracer_equals_jax_without_jit(scene, mode):
                shadow_ambient=1.0 if mode == "shadows_lit" else 0.4)
     cam, jcam = _cams((64, 32))
     img, rs = RayTracer(mats, **kw).render(world, cam, RenderSettings(**skw))
-    with jax.disable_jit():
-        jimg, jrs = jrt.RayTracer(mats, **kw).render(
-            jworld, jcam, jrt.RenderSettings(**skw))
+    jimg, jrs = numpy_op_by_op(lambda: jrt.RayTracer(mats, **kw).render(
+        jworld, jcam, jrt.RenderSettings(**skw)))()
     assert img.shape == (32, 64, 3) and img.dtype == torch.float32
     _equal(img, jimg)
     for f in rs._fields:
@@ -102,8 +104,8 @@ def test_composite_crosshair_equals_jax(scene, style):
     img, _ = RayTracer(mats).render(world, cam, RenderSettings(sun_pos=SUN))
     for kw in ({}, dict(size=5.0, color=(1.0, 0.2, 0.1, 0.5))):
         got = composite_crosshair(img, style, **kw)
-        with jax.disable_jit():
-            ref = jrt.composite_crosshair(jnp.asarray(img.numpy()), style, **kw)
+        ref = numpy_op_by_op(lambda: jrt.composite_crosshair(
+            jnp.asarray(img.numpy()), style, **kw))()
         _equal(got, ref)
     if style == "off":
         assert got is img

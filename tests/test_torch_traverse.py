@@ -6,8 +6,11 @@ four CAMS at 64x32; both worlds are built by each package's own builders
 and equal word for word.
 
 Bars, each with its reason:
-  * against JAX without jit (``jax.disable_jit()``: every multiply and
-    add rounded on its own, the port's order): every field word for word;
+  * against JAX's program evaluated one primitive at a time (every
+    multiply and add rounded on its own, the port's order: NumPy's
+    ``tests/jax_op_by_op.py:numpy_op_by_op``, held on the chunk scene to
+    ``jax.disable_jit()``, which rounds alike but dispatches and compiles
+    each primitive on its own): every field word for word;
   * against JAX's jitted ``trace_rays``: hits and voxel ids equal, the
     other fields counted. XLA contracts ``a*b+c`` into FMAs there, which
     moves positions and step lengths by ulps; measured on these five
@@ -45,6 +48,7 @@ from voxelraytracing_tpu_torch.world.demo import (
 from voxelraytracing_tpu_torch.world.pool import build_world_slice
 from voxelraytracing_tpu_torch.ops import noise
 
+from jax_op_by_op import numpy_op_by_op
 from reference_tracer import trace_one
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
@@ -100,6 +104,12 @@ def _jax_trace(jworld, mats, origin, dirs, max_steps=500):
                             jnp.asarray(dirs.numpy()), max_steps)
 
 
+def _jax_trace_op_by_op(jworld, mats, origin, dirs, max_steps=500):
+    """JAX's trace, one primitive at a time (``numpy_op_by_op``)."""
+    return numpy_op_by_op(lambda: _jax_trace(jworld, mats, origin, dirs,
+                                         max_steps))()
+
+
 def _words(x):
     x = np.asarray(x)
     return x.view(np.uint32) if x.dtype == np.float32 else x
@@ -126,10 +136,13 @@ def test_trace_equals_jax_without_jit(scenes, scene, ray):
     world, jworld, mats, rays = scenes[scene]
     origin, dirs = rays[ray]
     rs = traverse.trace_rays(world, mats.is_liquid, origin, dirs)
-    with jax.disable_jit():
-        ref = _jax_trace(jworld, mats, origin, dirs)
+    ref = _jax_trace_op_by_op(jworld, mats, origin, dirs)
     assert _differ(rs, ref) == dict.fromkeys(rs._fields, 0)
     assert rs.hit.any()
+    if scene == "chunk":
+        with jax.disable_jit():
+            eager = _jax_trace(jworld, mats, origin, dirs)
+        assert _differ(rs, eager) == dict.fromkeys(rs._fields, 0)
 
 
 def test_trace_against_jitted_jax_counted(scenes):
@@ -203,8 +216,7 @@ def test_step_caps(scenes, max_steps):
     world, jworld, mats, rays = scenes["demo"]
     origin, dirs = rays[1]
     rs = traverse.trace_rays(world, mats.is_liquid, origin, dirs, max_steps)
-    with jax.disable_jit():
-        ref = _jax_trace(jworld, mats, origin, dirs, max_steps)
+    ref = _jax_trace_op_by_op(jworld, mats, origin, dirs, max_steps)
     assert _differ(rs, ref) == dict.fromkeys(rs._fields, 0)
     assert int(rs.steps.max()) == min(max_steps, int(rs.steps.max()))
     if max_steps == 0:
@@ -213,7 +225,9 @@ def test_step_caps(scenes, max_steps):
 
 def test_camera_outside_and_axis_aligned_rays(scenes):
     """A camera outside the world sees nothing; axis-aligned rays (zero
-    direction components, the guarded ratios) equal JAX without jit."""
+    direction components, the guarded ratios) equal JAX without jit. Zero
+    signs decide these rays, so the op-by-op evaluation is also held to
+    ``jax.disable_jit()`` word for word here."""
     world, jworld, mats, _ = scenes["demo"]
     cam = CamData.create((30.0, 45.0, 0.0), (-50.0, 75.0, 64.0), 70.0, (64, 32))
     origin, dirs = generate_rays(cam, np.zeros(3), **CPU)
@@ -223,10 +237,12 @@ def test_camera_outside_and_axis_aligned_rays(scenes):
     dirs = torch.from_numpy(np.repeat(axes, 2, axis=0))
     origins = torch.tensor([[64.5, 70.25, 64.5], [127.5, 40.0, 0.5]] * 6)
     rs = traverse.trace_rays(world, mats.is_liquid, origins, dirs)
-    with jax.disable_jit():
-        ref = _jax_trace(jworld, mats, origins, dirs)
+    ref = _jax_trace_op_by_op(jworld, mats, origins, dirs)
     assert _differ(rs, ref) == dict.fromkeys(rs._fields, 0)
     assert rs.hit.any() and not rs.hit.all()
+    with jax.disable_jit():
+        eager = _jax_trace(jworld, mats, origins, dirs)
+    assert _differ(rs, eager) == dict.fromkeys(rs._fields, 0)
 
 
 def test_sync_interval_changes_no_word(scenes):

@@ -87,6 +87,21 @@ def _jax_march(static, scal, mc, ts, fl, wa, we, rays=None):
             np.asarray(want))
 
 
+# JAX's jitted _march of each static launch shape, shared by both cases
+# of the test below (both run camera-ray launches of 6 and 30 sub-rounds)
+_JITTED = {}
+
+
+def _jitted_march(kw):
+    key = tuple(kw[k] for k in ("sub_rounds", "nw", "ns", "nsx", "lookahead"))
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(functools.partial(
+            j3._march, sub_rounds=kw["sub_rounds"], sub_steps=8,
+            nw=kw["nw"], ns=kw["ns"], nsx=kw["nsx"], interpret=True,
+            lookahead=kw["lookahead"]))
+    return _JITTED[key]
+
+
 @pytest.mark.parametrize("per_ray", [False, True], ids=["camera", "bundle"])
 def test_march3_ref_matches_jax_launch_by_launch(world, per_ray):
     """Every launch of a frame: the port's round loop serves the wants and
@@ -97,18 +112,11 @@ def test_march3_ref_matches_jax_launch_by_launch(world, per_ray):
     _, trg, mats, _ = world
     seen = []
     ref = t3.march3_ref
-    jitted = {}
 
     def both(scal, mc, ts, fl, wa, we, rays=None, tile_map=None, **kw):
         out, want = ref(scal, mc, ts, fl, wa, we, rays, tile_map, **kw)
-        key = (rays is not None, kw["sub_rounds"])
-        if key not in jitted:
-            jitted[key] = jax.jit(functools.partial(
-                j3._march, sub_rounds=kw["sub_rounds"], sub_steps=8,
-                nw=kw["nw"], ns=kw["ns"], nsx=kw["nsx"], interpret=True,
-                lookahead=kw["lookahead"]))
-        got = _jax_march(jitted[key], scal.numpy(), mc.numpy(), ts.numpy(),
-                         fl.numpy(), wa.numpy(), we.numpy(),
+        got = _jax_march(_jitted_march(kw), scal.numpy(), mc.numpy(),
+                         ts.numpy(), fl.numpy(), wa.numpy(), we.numpy(),
                          None if rays is None else rays.numpy())
         np.testing.assert_array_equal(out[1].numpy(), got[1])
         np.testing.assert_array_equal(want.numpy(), got[4])

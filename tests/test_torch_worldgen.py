@@ -8,7 +8,10 @@ torch ops on the CPU here, as on the card. Compared exactly:
   JAX's builder and the port's native ``dense_to_svo_batch``;
 - the noise sampler, ``WorldGen.generate_chunks`` grids and aux maps
   (``height``, ``biome``, ``peak``, ``veg_prob``) and features, and
-  ``find_land_near``: against JAX evaluated under ``jax.disable_jit()``.
+  ``find_land_near``: against JAX evaluated under ``jax.disable_jit()``
+  (its terrain pass ``_generate_impl`` one primitive at a time in NumPy,
+  ``tests/jax_op_by_op.py:numpy_op_by_op``, which rounds as ``disable_jit``
+  does without compiling each primitive).
   XLA's CPU compiler contracts ``a*b+c`` into FMA inside jitted programs,
   so the jitted ``TerrainGen._generate`` rounds some noise values an ulp
   apart; that path is compared by counting (``test_jitted_path_counted``);
@@ -42,6 +45,7 @@ from voxelraytracing_tpu_torch.server import ServerWorld
 from voxelraytracing_tpu_torch.world.demo import (
     demo_chunk_grids, demo_chunk_grids_host)
 from voxelraytracing_tpu_torch.worldgen import WorldGen
+from jax_op_by_op import numpy_op_by_op
 from torch_one_thread import torch_one_thread  # noqa: F401 (autouse)
 
 CPU = dict(device="cpu")
@@ -155,18 +159,26 @@ def _positions(gen):
 
 
 def _eager(jgen, pos):
-    with jax.disable_jit():
-        grids, aux = jgen.terrain._generate_impl(jnp.asarray(pos, jnp.int32))
-        return np.asarray(grids), {k: np.asarray(v) for k, v in aux.items()}
+    grids, aux = _op_by_op(jgen)(jnp.asarray(pos, jnp.int32))
+    return np.asarray(grids), {k: np.asarray(v) for k, v in aux.items()}
+
+
+def _op_by_op(jgen):
+    """JAX's terrain pass of ``jgen`` evaluated op by op; it also stands
+    in for the jitted pass ``generate_chunks`` runs."""
+    terrain = numpy_op_by_op(jgen.terrain._generate_impl)
+    jgen.terrain._generate = terrain
+    return terrain
 
 
 @pytest.mark.parametrize("preset,seed", [
     ("Continents", 1234), ("Continents", PRESET_SEED),
     ("Flatland", 1234), ("Flatland", PRESET_SEED)])
 def test_generate_chunks_equal_jax(packs, preset, seed):
-    """Grids, aux maps and features of four chunks equal JAX's (under
-    ``jax.disable_jit()``); ``find_land_near``, ``terrain_h_at`` and
-    ``biome_at`` too."""
+    """Grids, aux maps and features of four chunks equal JAX's (its terrain
+    pass evaluated one primitive at a time, ``numpy_op_by_op``, the rest
+    under ``jax.disable_jit()``); ``find_land_near``, ``terrain_h_at``
+    and ``biome_at`` too."""
     jdp, tdp = packs
     jgen = JWorldGen.from_datapack(jdp, seed, preset)
     tgen = WorldGen.from_datapack(tdp, seed, preset, **CPU)
@@ -233,9 +245,9 @@ def test_demo_chunk_grids_equal(packs):
         np.testing.assert_array_equal(grids.numpy(), hg)
         np.testing.assert_array_equal(cells.numpy(), hc)
     grids, cells = demo_chunk_grids(perm, (0, 0, 0), 2, 28.8, 17, **CPU)
-    with jax.disable_jit():
-        jg, jc = j_demo_grids(jnp.asarray(perm), jnp.asarray((0, 0, 0), jnp.int32),
-                              2, jnp.float32(28.8), jnp.int32(17))
+    jg, jc = numpy_op_by_op(lambda: j_demo_grids(
+        jnp.asarray(perm), jnp.asarray((0, 0, 0), jnp.int32), 2,
+        jnp.float32(28.8), jnp.int32(17)))()
     np.testing.assert_array_equal(grids.numpy(), np.asarray(jg))
     np.testing.assert_array_equal(cells.numpy(), np.asarray(jc))
 
@@ -258,6 +270,7 @@ def test_server_world_equals_jax(packs):
 
     edit = tuple(np.asarray(base) * 32 + (1, 2, 3))
     jw, tw = JServerWorld(jgen), ServerWorld(tgen)
+    _op_by_op(jgen)
     with jax.disable_jit():  # the generation; the SVO build is integer
         jdone = jw.generate_chunks(pos + [(0, -9, 0)], fs=Fs())
     jtouched = jw.place_features()

@@ -395,7 +395,9 @@ def _v3_legs(rg, cam, scal, *, height, width, rounds, sub_rounds,
              step_cap):
     """The legs of the v3 route (wavefront3.py:2536-2542, :2857-2867):
     the camera leg through the v3 round loop at ``rounds``, each bounce
-    bundle at ``max(rounds * 2 // 3, 4)``; raw planes in image order."""
+    bundle at ``max(rounds * 2 // 3, 4)``; raw planes in image order,
+    contiguous (a cropped untile is a view, and :func:`matfetch4`'s
+    kernel takes contiguous planes)."""
     from .wavefront3 import (
         _require_tiles,
         _tile_bundle,
@@ -409,8 +411,8 @@ def _v3_legs(rg, cam, scal, *, height, width, rounds, sub_rounds,
               raw_out=True)
 
     def image(planes):
-        return tuple(_untile_hw(p, w // TILE_W, h // TILE_H, width, height)
-                     for p in planes)
+        return tuple(_untile_hw(p, w // TILE_W, h // TILE_H, width,
+                                height).contiguous() for p in planes)
 
     def primary():
         origin = scal[:3].cpu().numpy()
